@@ -3,19 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``sketches_tpu_torch/csrc`` (``nvcc``,
-into ``build/sketches_tpu_torch/``), holds each against its plain PyTorch
-version on the card, then drives the README quick start at full size --
-``BatchedDDSketch(n_streams=1 << 20, relative_accuracy=0.01, n_bins=512)``,
-four ``[2**20, 256]`` batches, p50/p90/p99/p999 -- once with positive
-lognormal(0, 2) traffic (which must resolve the ``windowed`` tier) and once
-with 40% of the values negated (``tiles``).  It checks the launch counters,
-the answer against the ``engine="plain"`` facade on the card and against
-exact quantiles of sampled streams, times each kernel beside its plain
-version and its byte bound, and prints one JSON line per phase.  The last
-line is ``{"ok": true, "device": {...}}``; any failure raises and exits
-non-zero.  Without a CUDA device, or without the package beside it, it
-exits non-zero and prints no result.  Imports torch and numpy, never JAX.
+Builds the five CUDA kernels from ``sketches_tpu_torch/csrc`` (``nvcc``, all
+in parallel, into ``build/sketches_tpu_torch/``), holds each against its
+plain PyTorch version on the card, then drives three paths at full size:
+
+* the README quick start -- ``BatchedDDSketch(n_streams=1 << 20,
+  relative_accuracy=0.01, n_bins=512)``, four ``[2**20, 256]`` batches,
+  p50/p90/p99/p999 -- once with positive lognormal(0, 2) traffic and once
+  with 40% of the values negated.  The default route must resolve
+  ``overlap`` for both; the same state queried with
+  ``disabled_tiers=("overlap",)`` must resolve ``windowed`` (positive) and
+  ``tiles`` (mixed);
+* ``DistributedDDSketch`` over two value shards on the one card, four
+  batches of positive traffic, against the ``engine="plain"`` facade on the
+  same mesh: the default query resolves ``overlap``, and with
+  ``disabled_tiers=("windowed", "wxla")`` the floor ``xla`` answers through
+  one ``fused_quantile`` launch.
+
+Each path resets the launch counters before it runs and reads them after.
+Answers are checked against the plain facade and against exact quantiles of
+sampled streams; each kernel is timed beside its plain version and its
+bound; one JSON line is printed per phase.  The last line is
+``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
+Without a CUDA device, or without the package beside it, it exits non-zero
+and prints no result.  Imports torch and numpy, never JAX.
 """
 
 from __future__ import annotations
@@ -187,13 +198,16 @@ def _edge_values(gen, n, s, device):
 
 def phase_kernels_vs_plain(device) -> dict:
     """Each kernel against its plain version on the card, at the entry
-    step's width (1024 streams x 2048 bins, batch 256) and at 512 bins."""
+    step's width (1024 streams x 2048 bins, batch 256) and at 512 bins; the
+    overlap kernel with and without the negative store, at ring lookahead 1
+    and 8."""
     import torch
 
     from sketches_tpu_torch import batched, kernels
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    errs = {"ingest_histogram": 0.0, "fused_quantile_windowed": 0.0, "fused_quantile_tiles": 0.0}
+    errs = {"ingest_histogram": 0.0, "fused_quantile": 0.0, "fused_quantile_windowed": 0.0,
+            "fused_quantile_tiles": 0.0, "fused_quantile_tiles_overlap": 0.0}
     n, s = 1024, 256
     checked = 0
     sum_rel = 0.0  # the sum column's error, relative to sum |v * w|
@@ -280,12 +294,35 @@ def phase_kernels_vs_plain(device) -> dict:
             full = batched.quantile(spec, st, qs)
             got = kernels.fused_quantile_tiles(spec, st, qs, k_tiles=k_tiles, with_neg=with_neg_t)
             require_rel(got, full, 1e-6, "tiles vs batched.quantile")
+            # K5 against its plain version, and equal to K3 exactly.
+            for wn in (False, True):
+                for lookahead in (1, 8):
+                    got = kernels.fused_quantile_tiles_overlap(
+                        spec, st, qs, k_tiles=k_tiles, with_neg=wn, lookahead=lookahead)
+                    bn = kernels._stream_block(n)
+                    lists_pos, lists_neg, packed = kernels._tile_query_operands(
+                        spec, st, qs, bn, k_tiles)
+                    ref = kernels.fused_quantile_tiles_overlap_plain(
+                        spec, st, lists_pos, lists_neg, packed, bn, wn, qs.numel())
+                    errs["fused_quantile_tiles_overlap"] = max(
+                        errs["fused_quantile_tiles_overlap"], require_rel(got, ref, 1e-6, "overlap"))
+                    tiles = kernels.fused_quantile_tiles(spec, st, qs, k_tiles=k_tiles, with_neg=wn)
+                    same = torch.equal(torch.isnan(got), torch.isnan(tiles)) and torch.equal(
+                        got.nan_to_num(), tiles.nan_to_num())
+                    require(same, f"overlap differs from tiles ({n_bins}, {mixed}, {wn})")
+            # K2 against its plain version and the plain quantile.
+            got = kernels.fused_quantile(spec, st, qs)
+            ref = kernels.fused_quantile_plain(spec, st, qs)
+            errs["fused_quantile"] = max(
+                errs["fused_quantile"], require_rel(got, ref, 1e-6, "fused_quantile"))
+            require_rel(got, full, 1e-6, "fused_quantile vs batched.quantile")
     torch.cuda.synchronize()
     emit("kernels_vs_plain", ingest_cases=checked, max_abs_err=errs,
          ingest_sum_col_max_rel=sum_rel,
          tolerance="unit-weight ingest bit-identical; weighted ingest rtol 1e-5; sum column"
          " atol 1e-5*sum|v*w|; queries equal bucket (values rtol 1e-6: decode exp ulps);"
-         " max_abs_err of the ingest covers histograms and every column but sum")
+         " overlap equal to tiles exactly; max_abs_err of the ingest covers histograms and"
+         " every column but sum")
     return errs
 
 
@@ -297,7 +334,9 @@ def _exact_lower(x, qs):
 
 
 def phase_main_path(device, name: str, negate: float, expect_tier: str) -> dict:
-    """The quick start at full size through the facade, on the card."""
+    """The quick start at full size through the facade, on the card: the
+    default route (``overlap``), then the same state with the overlap tier
+    disabled (``expect_tier``)."""
     import torch
 
     from sketches_tpu_torch import BatchedDDSketch, batched, kernels
@@ -332,12 +371,20 @@ def phase_main_path(device, name: str, negate: float, expect_tier: str) -> dict:
         del v
     tier, got = sk.get_quantile_values_resolved(QS)
     torch.cuda.synchronize()
+    after_default = kernels.launch_counts()
+    ladder_tier, ladder = sk.get_quantile_values_resolved(QS, disabled_tiers=("overlap",))
+    torch.cuda.synchronize()
     launches = kernels.launch_counts()
     require(per_batch == [0] + [chunks] * (N_BATCHES - 1),
             f"ingest launches per batch {per_batch}, expected 0 then {chunks} each")
-    require(tier == expect_tier, f"{name} traffic resolved {tier!r}, expected {expect_tier!r}")
-    qkey = {"windowed": "fused_quantile_windowed", "tiles": "fused_quantile_tiles"}[tier]
+    require(tier == "overlap", f"{name} traffic resolved {tier!r}, expected 'overlap'")
+    require(after_default["fused_quantile_tiles_overlap"] == 1,
+            "the overlap kernel did not launch once on the default route")
+    require(ladder_tier == expect_tier,
+            f"{name} traffic without overlap resolved {ladder_tier!r}, expected {expect_tier!r}")
+    qkey = {"windowed": "fused_quantile_windowed", "tiles": "fused_quantile_tiles"}[ladder_tier]
     require(launches[qkey] == 1, f"{qkey} launched {launches[qkey]} times, expected 1")
+    err_ladder = require_rel(got, ladder, 1e-6, f"{name}: overlap vs {ladder_tier}")
 
     # The state and the answer against the plain facade on the card.
     for f in batched.LEAVES:
@@ -363,9 +410,10 @@ def phase_main_path(device, name: str, negate: float, expect_tier: str) -> dict:
     require(not bool(bad.any()), f"{name}: {int(bad.sum())} sampled quantiles outside alpha")
     rel = ((est - exact).abs() / exact.abs()).amax().item()
     out = {
-        "tier": tier, "plain_tier": ref_tier, "ingest_launches_per_batch": per_batch,
-        "launches": launches, "max_rel_err_vs_exact": rel, "max_abs_diff_vs_plain": err_plain,
-        "add_ms_per_batch": add_ms,
+        "tier": tier, "ladder_tier": ladder_tier, "plain_tier": ref_tier,
+        "ingest_launches_per_batch": per_batch, "launches": launches,
+        "max_rel_err_vs_exact": rel, "max_abs_diff_vs_plain": err_plain,
+        "max_abs_diff_overlap_vs_ladder": err_ladder, "add_ms_per_batch": add_ms,
     }
 
     # Per-batch ingest through the facade (kernel path incl. the fold) and
@@ -375,10 +423,102 @@ def phase_main_path(device, name: str, negate: float, expect_tier: str) -> dict:
     out["plain_facade_add_ms"] = event_ms(lambda: ref.add(v), warmup=1)
     out["values_per_s"] = N_STREAMS * BATCH / (out["facade_add_ms"] / 1e3)
     out["facade_query_ms"] = event_ms(lambda: sk.get_quantile_values(QS))
+    out["facade_ladder_query_ms"] = event_ms(
+        lambda: sk.get_quantile_values_resolved(QS, disabled_tiers=("overlap",)))
     out["plain_facade_query_ms"] = event_ms(lambda: ref.get_quantile_values(QS))
     emit(f"main_path_{name}", **out)
     out["facade"] = sk
     del ref
+    return out
+
+
+def phase_distributed(device) -> dict:
+    """``DistributedDDSketch`` over two value shards on the one card, at the
+    quick start's width, against the plain engine on the same mesh."""
+    import torch
+
+    from sketches_tpu_torch import batched, kernels
+    from sketches_tpu_torch.parallel import DistributedDDSketch, SketchMesh
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 77)
+    mesh = SketchMesh(devices=[device, device])
+    dist = DistributedDDSketch(N_STREAMS, mesh=mesh, relative_accuracy=ALPHA, n_bins=N_BINS)
+    ref = DistributedDDSketch(N_STREAMS, mesh=mesh, relative_accuracy=ALPHA, n_bins=N_BINS,
+                              engine="plain")
+    require(dist.engine == "kernel" and ref.engine == "plain", "distributed engines")
+    sample = torch.randperm(N_STREAMS, device=device, generator=gen)[:N_SAMPLED]
+    kept = []
+    abs_sum = torch.zeros(N_STREAMS, dtype=torch.float64, device=device)
+    add_ms, plain_add_ms = [], []
+    kernels.reset_launch_counts()
+    for _ in range(N_BATCHES):
+        v = torch.empty((N_STREAMS, BATCH), device=device).log_normal_(0.0, 2.0, generator=gen)
+        kept.append(v[sample])
+        abs_sum += v.abs().sum(-1, dtype=torch.float64)
+        for facade, times in ((dist, add_ms), (ref, plain_add_ms)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            facade.add(v)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        del v
+    ingest_launches = kernels.ingest_histogram.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tier, got = dist.get_quantile_values_resolved(QS)
+    torch.cuda.synchronize()
+    first_query_ms = (time.perf_counter() - t0) * 1e3
+    after_default = kernels.launch_counts()
+    floor_tier, floor = dist.get_quantile_values_resolved(QS, disabled_tiers=("windowed", "wxla"))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    require(ingest_launches == 2 * N_BATCHES,
+            f"{ingest_launches} ingest launches, expected one per value shard per batch")
+    require(tier == "overlap", f"distributed default resolved {tier!r}, expected 'overlap'")
+    require(after_default["fused_quantile_tiles_overlap"] == 1, "overlap did not launch once")
+    require(floor_tier == "xla", f"distributed floor resolved {floor_tier!r}, expected 'xla'")
+    require(launches["fused_quantile"] == 1,
+            f"fused_quantile launched {launches['fused_quantile']} times, expected 1")
+    err_floor = require_rel(floor, got, 1e-6, "distributed: xla vs overlap")
+
+    # Partials and the merged state against the plain engine's.
+    for row_k, row_p in zip(dist.shard_partials(), ref.shard_partials()):
+        for pk, pp in zip(row_k, row_p):
+            for f in batched.LEAVES:
+                a, b = getattr(pk, f), getattr(pp, f)
+                if f == "sum":
+                    require(bool(((a - b).abs() <= 1e-5 * abs_sum).all()), "partial sum differs")
+                else:
+                    require(torch.equal(a, b), f"partial leaf {f} differs from the plain engine")
+    mk, mp = dist.merged_state(), ref.merged_state()
+    for f in batched.LEAVES:
+        a, b = getattr(mk, f), getattr(mp, f)
+        if f == "sum":
+            require(bool(((a - b).abs() <= 1e-5 * abs_sum).all()), "merged sum differs")
+        else:
+            require(torch.equal(a, b), f"merged leaf {f} differs from the plain engine")
+    ref_tier, ref_vals = ref.get_quantile_values_resolved(QS)
+    err_plain = require_rel(got, ref_vals, 1e-6, "distributed: kernel vs plain engine")
+    require(bool(torch.isfinite(got).all()) and got.shape == (N_STREAMS, len(QS)),
+            "distributed answers are not finite [N, Q]")
+    exact = _exact_lower(torch.cat(kept, dim=1), CHECK_QS)
+    est = got[sample][:, : len(CHECK_QS)].double()
+    ulp = torch.finfo(torch.float32).eps * exact.abs()
+    bad = (est - exact).abs() > ALPHA * exact.abs() + ulp
+    require(not bool(bad.any()), f"distributed: {int(bad.sum())} sampled quantiles outside alpha")
+    rel = ((est - exact).abs() / exact.abs()).amax().item()
+    out = {
+        "tier": tier, "floor_tier": floor_tier, "plain_tier": ref_tier, "launches": launches,
+        "max_rel_err_vs_exact": rel, "max_abs_diff_vs_plain": err_plain,
+        "max_abs_diff_floor_vs_default": err_floor, "add_ms_per_batch": add_ms,
+        "plain_add_ms_per_batch": plain_add_ms, "first_query_ms": first_query_ms,
+        "query_ms": event_ms(lambda: dist.get_quantile_values(QS)),
+        "floor_query_ms": event_ms(
+            lambda: dist.get_quantile_values_resolved(QS, disabled_tiers=("windowed", "wxla"))),
+        "plain_query_ms": event_ms(lambda: ref.get_quantile_values(QS)),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+    }
+    emit("distributed", **out)
     return out
 
 
@@ -403,9 +543,24 @@ def time_ingest(device, rate: float) -> dict:
             **bound(bytes_moved, ops, rate)}
 
 
-def time_query(device, facade, tier: str, rate: float) -> dict:
-    """K2 or K3 alone on the main path's final state, with the operands the
-    wrapper builds prepared beforehand."""
+def _distinct_tiles(spec, packed, q: int, device) -> int:
+    """Distinct crossing tiles this run's data needs: one per distinct
+    (stream, store tile) among the live ranks."""
+    import torch
+
+    n = packed.shape[0]
+    ut = packed[:, q: 2 * q].long()
+    live = (packed[:, 2 * q: 3 * q] < 0.5) & (packed[:, 3 * q: 4 * q] < 0.5)
+    per_row = 2 * spec.n_tiles
+    ids = torch.where(live, torch.arange(n, device=device)[:, None] * per_row + ut, -1)
+    return torch.unique(ids[ids >= 0]).numel()
+
+
+def time_query(device, facade, tier: str, rate: float, lookahead: int = 8) -> dict:
+    """One query kernel alone on a main path's final state, with the
+    operands the wrapper builds prepared beforehand: ``windowed``,
+    ``tiles``, ``overlap`` (ring depth from ``lookahead``, the wrapper's
+    default 8) or ``xla`` (``fused_quantile``)."""
     import torch
 
     from sketches_tpu_torch import kernels
@@ -433,7 +588,7 @@ def time_query(device, facade, tier: str, rate: float) -> dict:
         bytes_moved = 4 * (stores * n * ntw * 128 + packed.numel() + n * q)
         ops = stores * n * ntw * 128 * (1 + q) + QUERY_DECODE_OPS * n * q
         extra = {"window_tiles": ntw, "with_neg": with_neg}
-    else:
+    elif tier == "tiles":
         k_tiles, with_neg = kernels.plan_tile_query(spec, st, qs)
         packed = kernels._tiles_packed(spec, st, qs)
 
@@ -446,16 +601,55 @@ def time_query(device, facade, tier: str, rate: float) -> dict:
         def plain():
             kernels.fused_quantile_tiles_plain(spec, st, packed, with_neg, q)
 
-        # Distinct crossing tiles this run's data needs: one per distinct
-        # (stream, store tile) among the live ranks.
-        ut = packed[:, q: 2 * q].long()
-        live = (packed[:, 2 * q: 3 * q] < 0.5) & (packed[:, 3 * q: 4 * q] < 0.5)
-        per_row = 2 * spec.n_tiles
-        ids = torch.where(live, torch.arange(n, device=device)[:, None] * per_row + ut, -1)
-        distinct = torch.unique(ids[ids >= 0]).numel()
+        distinct = _distinct_tiles(spec, packed, q, device)
         bytes_moved = 4 * (distinct * 128 + packed.numel() + n * q)
         ops = distinct * 128 * 2 + QUERY_DECODE_OPS * n * q
         extra = {"distinct_tiles": distinct, "k_tiles": k_tiles, "with_neg": with_neg}
+    elif tier == "overlap":
+        k_tiles, with_neg = kernels.plan_tile_query(spec, st, qs)
+        bn = kernels._stream_block(n)
+        depth = kernels._overlap_depth((2 if with_neg else 1) * k_tiles, lookahead)
+        lists_pos, lists_neg, packed = kernels._tile_query_operands(spec, st, qs, bn, k_tiles)
+
+        def run():
+            kernels._launch("sk_overlap", device, st.bins_pos.data_ptr(),
+                            st.bins_neg.data_ptr() if with_neg else None,
+                            lists_pos.data_ptr(), lists_neg.data_ptr() if with_neg else None,
+                            packed.data_ptr(), out.data_ptr(), consts.data_ptr(),
+                            spec.mapping.kernel_id, n, spec.n_bins, q, packed.shape[1], bn,
+                            k_tiles, depth)
+
+        def plain():
+            kernels.fused_quantile_tiles_overlap_plain(
+                spec, st, lists_pos, lists_neg, packed, bn, with_neg, q)
+
+        # The bound counts the tiles the answer needs (as for K3); the
+        # kernel reads every fresh list entry's slab of its block.
+        distinct = _distinct_tiles(spec, packed, q, device)
+        lists = torch.cat([lists_pos, lists_neg], 1) if with_neg else lists_pos
+        fresh = torch.ones_like(lists, dtype=torch.bool)
+        for half in range(2 if with_neg else 1):
+            sl = slice(half * k_tiles + 1, (half + 1) * k_tiles)
+            fresh[:, sl] = lists[:, sl] != lists[:, half * k_tiles: (half + 1) * k_tiles - 1]
+        bytes_read = int(fresh.sum()) * bn * 128 * 4
+        bytes_moved = 4 * (distinct * 128 + packed.numel() + lists.numel() + n * q)
+        ops = distinct * 128 * 2 + QUERY_DECODE_OPS * n * q
+        extra = {"distinct_tiles": distinct, "k_tiles": k_tiles, "with_neg": with_neg,
+                 "depth": depth, "block_streams": bn, "slab_bytes_read": bytes_read}
+    else:
+        def run():
+            kernels._launch("sk_quantile", device, st.bins_pos.data_ptr(),
+                            st.bins_neg.data_ptr(), st.zero_count.data_ptr(),
+                            st.count.data_ptr(), st.key_offset.data_ptr(), qs.data_ptr(),
+                            out.data_ptr(), consts.data_ptr(), spec.mapping.kernel_id, n,
+                            spec.n_bins, q)
+
+        def plain():
+            kernels.fused_quantile_plain(spec, st, qs)
+
+        bytes_moved = 4 * (2 * n * spec.n_bins + 3 * n + q + n * q)
+        ops = 2 * n * spec.n_bins * (1 + q) + QUERY_DECODE_OPS * n * q
+        extra = {"with_neg": True}
     ms = event_ms(run)
     plain_ms = event_ms(plain)
     return {"ms": ms, "plain_ms": plain_ms, **extra, **bound(bytes_moved, ops, rate)}
@@ -483,39 +677,57 @@ def main() -> int:
     errs = phase_kernels_vs_plain(device)
 
     pos = phase_main_path(device, "positive", 0.0, "windowed")
-    t_win = time_query(device, pos.pop("facade"), "windowed", rate)
+    t_win = time_query(device, pos["facade"], "windowed", rate)
+    t_over = time_query(device, pos["facade"], "overlap", rate)
+    del pos["facade"]
     torch.cuda.empty_cache()
     mixed = phase_main_path(device, "mixed_sign", 0.4, "tiles")
-    t_tiles = time_query(device, mixed.pop("facade"), "tiles", rate)
+    t_tiles = time_query(device, mixed["facade"], "tiles", rate)
+    t_over_mixed = time_query(device, mixed["facade"], "overlap", rate)
+    # The ring depth sets how many CTAs fit an SM (16 KB a slot): 8 slots
+    # leave room for one, 4 for three.
+    t_over_mixed4 = time_query(device, mixed["facade"], "overlap", rate, lookahead=4)
+    t_full = time_query(device, mixed["facade"], "xla", rate)
+    del mixed["facade"]
     torch.cuda.empty_cache()
     t_ingest = time_ingest(device, rate)
     emit("times", card=card["smi"], ingest=t_ingest, windowed=t_win, tiles=t_tiles,
+         overlap=t_over, overlap_mixed=t_over_mixed, overlap_mixed_lookahead4=t_over_mixed4,
+         fused_quantile=t_full,
          note="kernel alone vs its plain version at the main path's shapes, CUDA events,"
-              " median of 11 after warm-up; bound = max(bytes/mem rate, f32 ops/67 TFLOP/s)")
+              " median of 11 after warm-up; bound = max(bytes/mem rate, f32 ops/67 TFLOP/s);"
+              " overlap on the positive and the mixed final state, fused_quantile on the"
+              " mixed one")
+    torch.cuda.reset_peak_memory_stats(device)
+    dist = phase_distributed(device)
+    torch.cuda.empty_cache()
+
+    def launched(name):
+        return sum(path["launches"][name] for path in (pos, mixed, dist))
 
     src = "sketches_tpu_torch/csrc/"
     rows = [
         ("ingest_histogram", "ingest.cu", "sketches_tpu/kernels.py:233 (_ingest_kernel)",
-         pos["launches"]["ingest_histogram"] + mixed["launches"]["ingest_histogram"], t_ingest),
+         t_ingest),
+        ("fused_quantile", "quantile.cu",
+         "sketches_tpu/kernels.py:777 (_quantile_kernel, _select_quantiles)", t_full),
         ("fused_quantile_windowed", "windowed.cu",
-         "sketches_tpu/kernels.py:883 (_windowed_kernel)",
-         pos["launches"]["fused_quantile_windowed"]
-         + mixed["launches"]["fused_quantile_windowed"], t_win),
+         "sketches_tpu/kernels.py:883 (_windowed_kernel)", t_win),
         ("fused_quantile_tiles", "tiles.cu",
-         "sketches_tpu/kernels.py:1510 (_tiles_kernel, _count_and_decode)",
-         pos["launches"]["fused_quantile_tiles"] + mixed["launches"]["fused_quantile_tiles"],
-         t_tiles),
+         "sketches_tpu/kernels.py:1510 (_tiles_kernel, _count_and_decode)", t_tiles),
+        ("fused_quantile_tiles_overlap", "overlap.cu",
+         "sketches_tpu/kernels.py:1814 (_overlap_kernel)", t_over),
     ]
-    for name, _, _, launches, _ in rows:
-        require(launches > 0, f"{name} never launched on the main path")
+    for name, *_ in rows:
+        require(launched(name) > 0, f"{name} never launched on a main path")
     table = [
         {
             "name": name, "route": "cuda", "source": src + file, "replaces": replaces,
-            "launches": launches, "max_abs_err": errs[name], "ms": t["ms"],
+            "launches": launched(name), "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
         }
-        for name, file, replaces, launches, t in rows
+        for name, file, replaces, t in rows
     ]
     emit("done", seconds=time.perf_counter() - t_start)
     print(card["smi"])

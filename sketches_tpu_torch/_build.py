@@ -28,7 +28,7 @@ from sketches_tpu_torch.resilience import EngineUnavailable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sketches_tpu_torch"
-SOURCES = ("ingest.cu", "windowed.cu", "tiles.cu")
+SOURCES = ("ingest.cu", "quantile.cu", "windowed.cu", "tiles.cu", "overlap.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",

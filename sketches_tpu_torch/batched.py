@@ -12,8 +12,8 @@ ops; they are the port's plain tier (JAX's XLA tier) and the floor the
 facade routes to when no kernel applies.  :class:`BatchedDDSketch` is the
 stateful facade: it centres each stream's window on its first batch, sends
 128-aligned batches through the fused ingest kernel and picks the query
-tier exactly as the JAX facade does with its overlap engine switched off
-(``kernels.choose_query_engine``).
+tier exactly as the JAX facade does (``kernels.choose_query_engine``, with
+the overlap engine on unless ``SKETCHES_TPU_OVERLAP=0``).
 
 PyTorch runs eagerly, so nothing here is jitted.  Where the JAX facade
 donates its state to a jitted chunk op, the port updates the state's
@@ -226,8 +226,9 @@ class SketchState:
 
 
 def init(spec: SketchSpec, n_streams: int, device=None) -> SketchState:
-    """Allocate an empty batch of ``n_streams`` sketches on ``device``."""
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    """Allocate an empty batch of ``n_streams`` sketches on ``device``: the
+    card by default (``SpecError`` without one), the CPU when asked for."""
+    dev = resolve_device(device)
     bd, dt = spec.bin_dtype, spec.dtype
 
     def full(shape, value, dtype):
@@ -687,11 +688,11 @@ def recenter_to_data(spec: SketchSpec, state: SketchState) -> SketchState:
 # ---------------------------------------------------------------------------
 
 
-def _resolve_device(device, state: Optional[SketchState]) -> torch.device:
-    """The facade's device: the caller's, else the state's, else the card.
+def resolve_device(device=None, state: Optional[SketchState] = None) -> torch.device:
+    """An entry point's device: the caller's, else the state's, else the card.
 
     There is no silent CPU fallback: without a card, a caller who wants the
-    CPU says so with ``device="cpu"``.
+    CPU says so with ``device="cpu"``; otherwise this raises ``SpecError``.
     """
     if device is None and state is not None:
         return state.device
@@ -699,7 +700,7 @@ def _resolve_device(device, state: Optional[SketchState]) -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise SpecError(
-                "BatchedDDSketch runs on a CUDA device by default and none is"
+                "the port runs on a CUDA device by default and none is"
                 " available; pass device='cpu' to run on the CPU"
             )
         if dev.index is None:
@@ -715,8 +716,9 @@ class BatchedDDSketch:
     configuration qualifies (``kernels.supports``), ``kernel`` demands it (and
     a CUDA device), ``plain`` never takes it.  On a CPU device the kernel
     path runs each kernel's plain version, so routing is the same on both.
-    Resolved query tiers keep the JAX names: ``tiles``, ``windowed``,
-    ``wxla`` and ``xla``.  Failures raise; there is no demotion ladder yet.
+    Resolved query tiers keep the JAX names: ``overlap``, ``tiles``,
+    ``windowed``, ``wxla`` and ``xla``.  Failures raise; there is no
+    demotion ladder yet.
 
     Failure modes: invalid construction, an unknown engine, or no CUDA
     device without ``device="cpu"`` raise ``SpecError``; merging unequal
@@ -751,7 +753,7 @@ class BatchedDDSketch:
                 bin_dtype=bin_dtype,
             )
         self.spec = spec
-        self.device = _resolve_device(device, state)
+        self.device = resolve_device(device, state)
         if state is not None and state.device != self.device:
             raise SpecError(f"state lives on {state.device}, not on {self.device}")
         self._state = init(spec, n_streams, self.device) if state is None else state
@@ -859,10 +861,12 @@ class BatchedDDSketch:
 
     # -- query ---------------------------------------------------------------
     def _query_choice(self, qs_tuple: tuple, disabled: frozenset = frozenset()):
-        """The query dispatch -> ``(tier, fn)``: ``tiles``/``windowed`` on
-        the kernel path (``kernels.choose_query_engine``, overlap off),
-        else ``wxla`` for 128-aligned windows, else ``xla``.  Each plan
-        costs one small host fetch after a state mutation and is cached."""
+        """The query dispatch -> ``(tier, fn)``: ``overlap``/``tiles``/
+        ``windowed`` on the kernel path (``kernels.choose_query_engine``;
+        overlap while ``kernels.overlap_enabled()`` and the caller has not
+        disabled it), else ``wxla`` for 128-aligned windows, else ``xla``.
+        Each plan costs one small host fetch after a state mutation and is
+        cached."""
         from sketches_tpu_torch import kernels
 
         spec = self.spec
@@ -879,8 +883,17 @@ class BatchedDDSketch:
                     self._tile_plans[qs_tuple] = plan
                 k_tiles, with_neg_t = plan
                 pick = kernels.choose_query_engine(
-                    self._window_plan, plan, overlap_ok=False
+                    self._window_plan,
+                    plan,
+                    overlap_ok=kernels.overlap_enabled() and "overlap" not in disabled,
                 )
+                if pick == "overlap":
+                    return "overlap", functools.partial(
+                        kernels.fused_quantile_tiles_overlap,
+                        spec,
+                        k_tiles=k_tiles,
+                        with_neg=with_neg_t,
+                    )
                 if pick == "tiles":
                     return "tiles", functools.partial(
                         kernels.fused_quantile_tiles,

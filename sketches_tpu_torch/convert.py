@@ -1,8 +1,11 @@
-"""Carry sketch specs and states between the JAX package and the port.
+"""Carry sketch specs, states and partials between the JAX package and the port.
 
 The port never imports the JAX package, so the hand-over is plain data: a
 spec as its dataclass fields, a state as one numpy array per leaf (for a
-JAX state, e.g. ``{f: np.asarray(getattr(state, f)) for f in LEAVES}``).
+JAX state, e.g. ``{f: np.asarray(getattr(state, f)) for f in LEAVES}``),
+and the value-sharded partials of a distributed facade the same way, each
+leaf with a leading ``[n_value_shards]`` axis (``np.asarray`` of a JAX
+facade's ``partials`` leaves gathers them so).
 """
 
 from __future__ import annotations
@@ -12,10 +15,16 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from sketches_tpu_torch.batched import LEAVES, SketchSpec, SketchState
+from sketches_tpu_torch.batched import LEAVES, SketchSpec, SketchState, resolve_device
 from sketches_tpu_torch.resilience import SpecError
 
-__all__ = ["spec_from_fields", "state_from_numpy", "state_to_numpy"]
+__all__ = [
+    "spec_from_fields",
+    "state_from_numpy",
+    "state_to_numpy",
+    "partials_from_numpy",
+    "partials_to_numpy",
+]
 
 _TORCH_DTYPES = {"float32": torch.float32, "int32": torch.int32}
 
@@ -40,14 +49,16 @@ def spec_from_fields(**fields) -> SketchSpec:
 
 
 def state_from_numpy(
-    spec: SketchSpec, leaves: Mapping[str, np.ndarray], device="cpu"
+    spec: SketchSpec, leaves: Mapping[str, np.ndarray], device=None
 ) -> SketchState:
     """A port ``SketchState`` on ``device`` from one array per leaf.
 
-    Every one of the sixteen leaves must be present; dtypes are checked
-    against the spec (bins and counters in ``bin_dtype``, sum/min/max in
-    ``dtype``, offsets and bounds int32).
+    ``device`` defaults to the card (``SpecError`` without one); pass
+    ``device="cpu"`` for the CPU.  Every one of the sixteen leaves must be
+    present; dtypes are checked against the spec (bins and counters in
+    ``bin_dtype``, sum/min/max in ``dtype``, offsets and bounds int32).
     """
+    device = resolve_device(device)
     missing = [f for f in LEAVES if f not in leaves]
     if missing:
         raise SpecError(f"state is missing leaves {missing}")
@@ -70,3 +81,29 @@ def state_from_numpy(
 def state_to_numpy(state: SketchState) -> Dict[str, np.ndarray]:
     """One numpy array per leaf (a host copy)."""
     return {f: getattr(state, f).detach().cpu().numpy() for f in LEAVES}
+
+
+def partials_from_numpy(
+    spec: SketchSpec, leaves: Mapping[str, np.ndarray], device=None
+) -> SketchState:
+    """Stacked partials ``[n_value_shards, n_streams, ...]`` on ``device``
+    (the card by default) from one array per leaf, each with the leading
+    value-shard axis -- what ``DistributedDDSketch.partials`` takes and
+    gives."""
+    st = state_from_numpy(spec, leaves, device)
+    k = st.bins_pos.shape[0]
+    bad = [
+        f for f in LEAVES
+        if getattr(st, f).ndim != (3 if f in ("bins_pos", "bins_neg", "tile_sums") else 2)
+        or getattr(st, f).shape[0] != k
+    ]
+    if bad:
+        raise SpecError(f"partials leaves {bad} lack the leading [{k}] value-shard axis")
+    return st
+
+
+def partials_to_numpy(partials: SketchState) -> Dict[str, np.ndarray]:
+    """One numpy array per leaf of stacked partials (a host copy)."""
+    if partials.bins_pos.ndim != 3:
+        raise SpecError("partials are stacked [n_value_shards, n_streams, ...]")
+    return state_to_numpy(partials)

@@ -24,38 +24,11 @@
 #include <cuda_runtime.h>
 
 #include "mapping.cuh"
+#include "tile_decode.cuh"
 
 namespace {
 
 constexpr int kRowsPerBlock = 8;
-
-// The final value of one (stream, q): index tile*128 + count clipped into
-// the store's exact occupied bounds, decoded and signed; zero bucket and
-// NaN applied last (_count_and_decode).
-template <int MAP, bool WITH_NEG>
-__device__ __forceinline__ float finish(float ut, int cnt, float zflag,
-                                        float nanflag, float koff,
-                                        float first_pos, float last_pos,
-                                        float first_neg, float last_neg,
-                                        int n_tiles, const sk::Consts& k) {
-  const bool is_neg = ut >= (float)n_tiles;
-  const float tile_f = ut - (is_neg ? (float)n_tiles : 0.0f);
-  const float idx = tile_f * 128.0f + (float)cnt;
-  float val;
-  if (WITH_NEG) {
-    const float first = is_neg ? first_neg : first_pos;
-    const float last = is_neg ? last_neg : last_pos;
-    const float sign = is_neg ? -1.0f : 1.0f;
-    const float key = fminf(fmaxf(idx, first), last) + koff;
-    val = sign * sk::value_of<MAP>(__float2int_rz(key), k);
-  } else {
-    const float key = fminf(fmaxf(idx, first_pos), last_pos) + koff;
-    val = sk::value_of<MAP>(__float2int_rz(key), k);
-  }
-  if (zflag > 0.5f) val = 0.0f;
-  if (nanflag > 0.5f) val = __int_as_float(0x7fc00000);
-  return val;
-}
 
 template <int MAP, bool WITH_NEG>
 __global__ void tiles_kernel(const float* __restrict__ bins_pos,
@@ -111,7 +84,7 @@ __global__ void tiles_kernel(const float* __restrict__ bins_pos,
     }
 
     if (has_q) {
-      out[row * (long)q_total + q] = finish<MAP, WITH_NEG>(
+      out[row * (long)q_total + q] = sk::tile_finish<MAP, WITH_NEG>(
           ut, my_cnt, zflag, nanflag, koff, first_pos, last_pos, first_neg,
           last_neg, n_tiles, k);
     }

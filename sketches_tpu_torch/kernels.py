@@ -1,12 +1,16 @@
 """Hand-written CUDA kernels for Hopper, their plain versions and the plans
 around them (counterpart of ``sketches_tpu/kernels.py``).
 
-Three kernels carry the single-card main path (``csrc/``):
+Five kernels carry the port's paths (``csrc/``):
 
 * ``ingest_histogram`` -- fused ingest (replaces ``_ingest_kernel``);
+* ``fused_quantile`` -- full-window query (``_quantile_kernel``), the
+  floor tier of the distributed facade on the kernel engine;
 * ``fused_quantile_windowed`` -- occupied-window query (``_windowed_kernel``);
 * ``fused_quantile_tiles`` -- tile-list query (``_tiles_kernel`` +
-  ``_count_and_decode``).
+  ``_count_and_decode``);
+* ``fused_quantile_tiles_overlap`` -- the tile-list walk through an
+  asynchronous-copy ring (``_overlap_kernel``), the facades' default tier.
 
 Each wrapper launches its kernel for tensors on a CUDA device and runs its
 plain PyTorch version (``*_plain`` beside it) for tensors on the CPU; on
@@ -17,16 +21,16 @@ else touches it.
 
 The plans (``plan_window``, ``plan_state_window``, ``plan_tile_query``,
 ``tile_query_eligible``, ``choose_query_engine``) are the JAX package's,
-so the port routes a query to the same tier for the same state.  The
-overlap engine is not ported yet, so ``choose_query_engine`` is called with
-``overlap_ok=False``: the configuration the JAX package ships as its overlap
-kill switch, with identical answers.
+so the port routes a query to the same tier for the same state.  The one
+environment variable the port reads is the overlap switch,
+``SKETCHES_TPU_OVERLAP`` (:func:`overlap_enabled`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional
 
 import torch
@@ -50,16 +54,23 @@ __all__ = [
     "choose_ingest_engine",
     "ingest_histogram",
     "ingest_histogram_plain",
+    "fused_quantile",
+    "fused_quantile_plain",
     "fused_quantile_windowed",
     "fused_quantile_windowed_plain",
     "fused_quantile_tiles",
     "fused_quantile_tiles_plain",
+    "fused_quantile_tiles_overlap",
+    "fused_quantile_tiles_overlap_plain",
     "quantile_windowed_xla",
     "plan_window",
     "plan_state_window",
+    "window_stats",
     "plan_tile_query",
     "tile_query_eligible",
     "choose_query_engine",
+    "overlap_enabled",
+    "OVERLAP_ENV",
     "launch_counts",
     "reset_launch_counts",
     "add",
@@ -157,10 +168,18 @@ def _ncols(n_tiles: int) -> int:
 
 _ENTRY_ARGS = {
     "sk_ingest": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "sk_quantile": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "sk_windowed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "sk_tiles": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "sk_overlap": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
-_ENTRY_SOURCE = {"sk_ingest": "ingest.cu", "sk_windowed": "windowed.cu", "sk_tiles": "tiles.cu"}
+_ENTRY_SOURCE = {
+    "sk_ingest": "ingest.cu",
+    "sk_quantile": "quantile.cu",
+    "sk_windowed": "windowed.cu",
+    "sk_tiles": "tiles.cu",
+    "sk_overlap": "overlap.cu",
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -380,6 +399,109 @@ def add(
 
 
 # ---------------------------------------------------------------------------
+# K2: full-window multi-quantile query
+# ---------------------------------------------------------------------------
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    """The kernels read 16-byte vectors: a view must start on a 16-byte
+    boundary."""
+    if t.data_ptr() % 16:
+        raise SketchValueError(f"{name} must start on a 16-byte boundary")
+
+
+def fused_quantile(spec: SketchSpec, state: SketchState, qs) -> torch.Tensor:
+    """All requested quantiles for every stream, reading both stores whole
+    -> [N, Q].
+
+    Semantics of ``batched.quantile`` (NaN for empty streams or q outside
+    [0, 1]), with the occupied bounds and the negative total taken from the
+    bins themselves as the TPU kernel does.  CUDA tensors run
+    ``csrc/quantile.cu``; CPU tensors run :func:`fused_quantile_plain`.
+    Integer bins raise ``NotImplementedError`` (they query through
+    ``batched.quantile``, whose integer compare never rounds).
+    """
+    n = state.n_streams
+    if spec.bins_integer:
+        raise NotImplementedError(
+            "fused_quantile requires float bins; integer-bin specs query"
+            " via batched.quantile (the facades route this automatically)"
+        )
+    qs = _as_qs(qs, state.device)
+    q_total = qs.shape[0]
+    if q_total == 0:
+        return torch.zeros((n, 0), dtype=torch.float32, device=state.device)
+    if not _on_cuda(state.bins_pos, "fused_quantile"):
+        return fused_quantile_plain(spec, state, qs)
+    dev = state.device
+    shape = (n, spec.n_bins)
+    for name in ("bins_pos", "bins_neg"):
+        _check(getattr(state, name), name, torch.float32, shape, dev)
+        _check_aligned(getattr(state, name), name)
+    for name in ("zero_count", "count"):
+        _check(getattr(state, name), name, torch.float32, (n,), dev)
+    _check(state.key_offset, "key_offset", torch.int32, (n,), dev)
+    qs = qs.contiguous()
+    out = torch.empty((n, q_total), dtype=torch.float32, device=dev)
+    _launch(
+        "sk_quantile", dev,
+        _ptr(state.bins_pos), _ptr(state.bins_neg), _ptr(state.zero_count),
+        _ptr(state.count), _ptr(state.key_offset), _ptr(qs), _ptr(out),
+        _ptr(_mapping_consts(spec.mapping, dev)),
+        spec.mapping.kernel_id, n, spec.n_bins, q_total,
+    )
+    fused_quantile.launches += 1
+    return out
+
+
+def _first_last_occupied(bins: torch.Tensor):
+    """First and last bin with mass > 0 per row -> ([N, 1], [N, 1]) int32;
+    an empty row gives (n_bins, -1)."""
+    n_bins = bins.shape[-1]
+    occ = bins > 0.0
+    iota = torch.arange(n_bins, dtype=torch.int32, device=bins.device)
+    first = torch.where(occ, iota, n_bins).amin(-1, keepdim=True).to(torch.int32)
+    last = torch.where(occ, iota, -1).amax(-1, keepdim=True).to(torch.int32)
+    return first, last
+
+
+def fused_quantile_plain(spec: SketchSpec, state: SketchState, qs: torch.Tensor):
+    """Plain PyTorch version of the full-window kernel, step for step as
+    ``_select_quantiles``: full-window ``cumsum`` of each store, occupied
+    bounds from the bins, the negative total as the last running sum, rank
+    masks, clip, decode, three-way select and NaN."""
+    f32 = torch.float32
+    cum_pos = torch.cumsum(state.bins_pos.to(f32), dim=-1)
+    cum_neg = torch.cumsum(state.bins_neg.to(f32), dim=-1)
+    first_pos, last_pos = _first_last_occupied(state.bins_pos)
+    first_neg, last_neg = _first_last_occupied(state.bins_neg)
+    neg_count = cum_neg[:, -1:]
+    zero = state.zero_count.to(f32)[:, None]
+    count = state.count.to(f32)[:, None]
+    rank = qs[None, :] * (count - 1.0)
+    rev = neg_count - 1.0 - rank
+    pos_rank = rank - zero - neg_count
+
+    def counts(cum, thr, strict):
+        cmp = torch.lt if strict else torch.le
+        return torch.stack(
+            [cmp(cum, thr[:, qi : qi + 1]).sum(-1) for qi in range(thr.shape[1])], dim=1
+        ).to(torch.int32)
+
+    idx_neg = _clip(counts(cum_neg, rev + 1.0, True), first_neg, last_neg)
+    idx_pos = _clip(counts(cum_pos, pos_rank, False), first_pos, last_pos)
+    key_lo = state.key_offset[:, None].to(torch.int32)
+    val_neg = -spec.mapping.value_array(idx_neg + key_lo)
+    val_pos = spec.mapping.value_array(idx_pos + key_lo)
+    zero_v = torch.zeros((), dtype=f32, device=qs.device)
+    val = torch.where(
+        rank < neg_count, val_neg, torch.where(rank < neg_count + zero, zero_v, val_pos)
+    )
+    valid = ((qs >= 0.0) & (qs <= 1.0))[None, :] & (count > 0.0)
+    return torch.where(valid, val, float("nan"))
+
+
+# ---------------------------------------------------------------------------
 # Window plan
 # ---------------------------------------------------------------------------
 
@@ -406,19 +528,25 @@ def plan_window(spec: SketchSpec, occ_lo_min: int, occ_hi_max: int):
     return best
 
 
-def plan_state_window(spec: SketchSpec, state: SketchState):
-    """Window plan of a live state -> ``(lo_w, n_w, w_t, with_neg)``, with
-    one host fetch of (global occupied min, max, any negative mass)."""
-    stats = torch.stack(
+def window_stats(state: SketchState):
+    """(global occupied min, global occupied max, any negative mass) of a
+    state, in one host fetch."""
+    glo, ghi, neg_any = torch.stack(
         [
             state.occ_lo.amin(),
             state.occ_hi.amax(),
             (state.neg_total > 0).any().to(torch.int32),
         ]
     ).tolist()
-    glo, ghi, neg_any = stats
-    lo_w, n_w, w_t = plan_window(spec, int(glo), int(ghi))
-    return lo_w, n_w, w_t, bool(neg_any)
+    return int(glo), int(ghi), bool(neg_any)
+
+
+def plan_state_window(spec: SketchSpec, state: SketchState):
+    """Window plan of a live state -> ``(lo_w, n_w, w_t, with_neg)``, with
+    one host fetch (:func:`window_stats`)."""
+    glo, ghi, neg_any = window_stats(state)
+    lo_w, n_w, w_t = plan_window(spec, glo, ghi)
+    return lo_w, n_w, w_t, neg_any
 
 
 def _windowed_packed(state: SketchState, qs: torch.Tensor) -> torch.Tensor:
@@ -635,12 +763,30 @@ def tile_query_eligible(spec: SketchSpec, q_total: int, window_plan) -> bool:
     return q_total <= 8 and spec.n_tiles >= 2 and spec.n_bins % LO == 0 and n_w * w_t > 1
 
 
+#: The overlap engine's switch, read with the JAX package's convention: on
+#: unless set to the literal "0".  The only environment variable the port
+#: reads.
+OVERLAP_ENV = "SKETCHES_TPU_OVERLAP"
+
+
+def overlap_enabled() -> bool:
+    """Whether the facades may route eligible queries to the overlap engine.
+
+    True unless ``SKETCHES_TPU_OVERLAP`` is set to ``"0"``; switched off,
+    every pick the overlap engine would take goes down the tiles/windowed
+    ladder instead (the engines answer identically).
+    """
+    return os.environ.get(OVERLAP_ENV, "1") != "0"
+
+
 def choose_query_engine(window_plan, tile_plan, overlap_ok: bool = False) -> str:
     """The windowed/tiles/overlap policy of the JAX package, verbatim: a
-    single-tile window goes to ``windowed``; wider spans go to ``tiles``
+    single-tile window goes to ``windowed``; with ``overlap_ok``, every span
+    the tile engine would take goes to ``overlap``, and so does the
+    equal-byte positive-only tie; otherwise wider spans go to ``tiles``
     when its needed-tile bound strictly beats the span or the negative store
-    participates.  ``overlap_ok`` admits the overlap engine, which the port
-    does not have yet: its facade passes False."""
+    participates.  The facades pass ``overlap_ok=overlap_enabled()`` unless
+    the caller disabled the tier."""
     if tile_plan is None:
         return "windowed"
     _, n_w, w_t, with_neg_w = window_plan
@@ -734,8 +880,8 @@ def _bit_planes(words: torch.Tensor, n_tiles: int) -> torch.Tensor:
 
 def _block_tile_lists(bits_pos, bits_neg, n_tiles, bn, k_tiles):
     """Per-stream-block sorted needed-tile lists -> ([nb, K], [nb, K]) int32,
-    padded at the end by repeating the last real entry.  The TPU kernel
-    walked these; the CUDA kernel reads each stream's tile directly."""
+    padded at the end by repeating the last real entry.  The overlap kernel
+    walks these (the tile kernel reads each stream's tile directly)."""
     t = n_tiles
 
     def compact(bits):
@@ -776,12 +922,28 @@ def plan_tile_query(spec: SketchSpec, state: SketchState, qs, bn: Optional[int] 
 
 
 def _tiles_packed(spec: SketchSpec, state: SketchState, qs: torch.Tensor) -> torch.Tensor:
-    """The tile kernel's per-stream operand: thr_adj[Q] | utile[Q] |
-    zflag[Q] | nanflag[Q] | key_offset | pos_lo | pos_hi | neg_lo | neg_hi,
-    f32, zero-padded to a multiple of 8 columns (``_tile_query_operands``)."""
-    f32 = torch.float32
+    """The tile kernels' per-stream operand (:func:`_pack_tile_operand`)."""
+    utile, thr_adj, zflag, _ = _tile_targets(spec, state, qs)
+    return _pack_tile_operand(state, utile, thr_adj, zflag, _invalid_mask(state, qs))
+
+
+def _tile_query_operands(spec: SketchSpec, state: SketchState, qs, bn: int, k_tiles: int):
+    """The tile-family kernels' shared inputs -> ``(lists_pos, lists_neg,
+    packed)``: per-block sorted needed-tile lists ``[N // bn, k_tiles]``
+    int32 and the packed per-stream operand."""
+    t = spec.n_tiles
     utile, thr_adj, zflag, _ = _tile_targets(spec, state, qs)
     nanflag = _invalid_mask(state, qs)
+    bits_pos, bits_neg = _tile_bits(utile, zflag, nanflag, t)
+    lists_pos, lists_neg = _block_tile_lists(bits_pos, bits_neg, t, bn, k_tiles)
+    packed = _pack_tile_operand(state, utile, thr_adj, zflag, nanflag)
+    return lists_pos.contiguous(), lists_neg.contiguous(), packed
+
+
+def _pack_tile_operand(state, utile, thr_adj, zflag, nanflag) -> torch.Tensor:
+    """thr_adj[Q] | utile[Q] | zflag[Q] | nanflag[Q] | key_offset | pos_lo |
+    pos_hi | neg_lo | neg_hi, f32, zero-padded to a multiple of 8 columns."""
+    f32 = torch.float32
     cols = [state.key_offset, state.pos_lo, state.pos_hi, state.neg_lo, state.neg_hi]
     packed = torch.cat(
         [thr_adj, utile.to(f32), zflag, nanflag.to(f32)] + [c.to(f32)[:, None] for c in cols],
@@ -846,18 +1008,17 @@ def fused_quantile_tiles(
 def fused_quantile_tiles_plain(spec, state, packed, with_neg, q_total):
     """Plain PyTorch version of the tile kernel: gather each (stream, q)'s
     crossing tile, ``cumsum``, count, clip, decode, zero bucket and NaN."""
+    blk = _crossing_tiles(spec, state, packed, with_neg, q_total)
+    return _count_and_decode(spec, blk, packed, with_neg, q_total)
+
+
+def _crossing_tiles(spec, state, packed, with_neg, q_total) -> torch.Tensor:
+    """[N, Q, 128]: each (stream, q)'s crossing tile (zeros for a negative
+    rank when the negative store is certified empty)."""
     n = state.n_streams
     t = spec.n_tiles
-    thr = packed[:, :q_total]
     ut = packed[:, q_total : 2 * q_total]
-    zflag = packed[:, 2 * q_total : 3 * q_total]
-    nanflag = packed[:, 3 * q_total : 4 * q_total]
-    base = 4 * q_total
-    koff = packed[:, base : base + 1]
-    first_pos = packed[:, base + 1 : base + 2]
-    last_pos = torch.maximum(packed[:, base + 2 : base + 3], first_pos)
     is_neg = ut >= float(t)
-    tile_all = ut - torch.where(is_neg, float(t), 0.0)
     tiles_pos = state.bins_pos.reshape(n, t, LO)
     if with_neg:
         tiles = torch.cat([tiles_pos, state.bins_neg.reshape(n, t, LO)], dim=1)
@@ -869,6 +1030,24 @@ def fused_quantile_tiles_plain(spec, state, packed, with_neg, q_total):
     if not with_neg:
         # The negative store is certified empty: such a rank reads zeros.
         blk = torch.where(is_neg[:, :, None], 0.0, blk)
+    return blk
+
+
+def _count_and_decode(spec, blk, packed, with_neg, q_total):
+    """The tile kernels' finalization over [N, Q, 128] tiles: ``cumsum``,
+    count (<= on the positive store, < on the negative one), clip into the
+    occupied bounds, decode, zero bucket and NaN."""
+    t = spec.n_tiles
+    thr = packed[:, :q_total]
+    ut = packed[:, q_total : 2 * q_total]
+    zflag = packed[:, 2 * q_total : 3 * q_total]
+    nanflag = packed[:, 3 * q_total : 4 * q_total]
+    base = 4 * q_total
+    koff = packed[:, base : base + 1]
+    first_pos = packed[:, base + 1 : base + 2]
+    last_pos = torch.maximum(packed[:, base + 2 : base + 3], first_pos)
+    is_neg = ut >= float(t)
+    tile_all = ut - torch.where(is_neg, float(t), 0.0)
     cum = torch.cumsum(blk, dim=-1)
     cmp = torch.where(is_neg[:, :, None], cum < thr[:, :, None], cum <= thr[:, :, None])
     cnt = cmp.sum(-1).to(torch.float32)
@@ -887,5 +1066,139 @@ def fused_quantile_tiles_plain(spec, state, packed, with_neg, q_total):
     return torch.where(nanflag > 0.5, float("nan"), val)
 
 
-_KERNEL_WRAPPERS = (ingest_histogram, fused_quantile_windowed, fused_quantile_tiles)
+# ---------------------------------------------------------------------------
+# K5: the tile-list walk through an asynchronous-copy ring
+# ---------------------------------------------------------------------------
+
+# Rows a CTA of the overlap kernel takes at a time, and the shared memory a
+# Hopper block may use (csrc/overlap.cu kRows, kSmemLimit).
+_OVERLAP_ROWS = 32
+_SMEM_BYTES = 232448
+
+
+def _overlap_depth(n_steps: int, requested: int) -> int:
+    """Ring depth: the largest of 8, 4, 2, 1 that is at most ``requested``
+    and divides ``n_steps`` -- so every block's walk starts at ring slot 0."""
+    for d in (8, 4, 2, 1):
+        if d <= requested and d <= n_steps and n_steps % d == 0:
+            return d
+    return 1
+
+
+def _overlap_smem_bytes(depth: int, q_total: int) -> int:
+    """Shared memory of one overlap CTA: the ring plus its [R, Q] counts."""
+    return depth * _OVERLAP_ROWS * LO * 4 + _OVERLAP_ROWS * q_total * 4
+
+
+def fused_quantile_tiles_overlap(
+    spec: SketchSpec,
+    state: SketchState,
+    qs,
+    *,
+    k_tiles: int,
+    with_neg: bool = True,
+    block_streams: int = 0,
+    lookahead: int = 8,
+) -> torch.Tensor:
+    """Tile-list multi-quantile query walked through a copy ring -> [N, Q].
+
+    The plan contract of :func:`fused_quantile_tiles` (``k_tiles`` from
+    :func:`plan_tile_query`, ``with_neg=False`` certified by
+    ``neg_total == 0``), with the TPU overlap kernel's walk: each stream
+    block of ``block_streams`` rows (default :func:`_stream_block`) copies
+    the tiles of its sorted needed-tile list, positive steps then negative
+    ones, through a ring of ``depth`` slots (the largest of 8/4/2/1 that is
+    at most ``lookahead`` and divides the step count), and folds each tile
+    only into the ranks that target it.  CUDA tensors run
+    ``csrc/overlap.cu``; CPU tensors run
+    :func:`fused_quantile_tiles_overlap_plain`.
+    """
+    n = state.n_streams
+    t = spec.n_tiles
+    if spec.bins_integer:
+        raise NotImplementedError(
+            "fused_quantile_tiles_overlap requires float bins; integer-bin"
+            " specs query via quantile_windowed_xla (exact integer compare)"
+        )
+    if spec.n_bins % LO != 0:
+        raise SpecError("tile-list query requires 128-aligned n_bins")
+    qs = _as_qs(qs, state.device)
+    q_total = qs.shape[0]
+    if q_total == 0:
+        return torch.zeros((n, 0), dtype=torch.float32, device=state.device)
+    bn = block_streams or _stream_block(n)
+    if n % bn != 0:
+        raise SketchValueError(f"n_streams={n} must be a multiple of the stream block ({bn})")
+    if not 1 <= k_tiles <= t:
+        raise SpecError(f"k_tiles={k_tiles} outside [1, {t}]")
+    if lookahead < 1:
+        raise SpecError(f"lookahead={lookahead} must be >= 1")
+    n_steps = (2 if with_neg else 1) * k_tiles
+    depth = _overlap_depth(n_steps, lookahead)
+    lists_pos, lists_neg, packed = _tile_query_operands(spec, state, qs, bn, k_tiles)
+    if not _on_cuda(packed, "fused_quantile_tiles_overlap"):
+        return fused_quantile_tiles_overlap_plain(
+            spec, state, lists_pos, lists_neg, packed, bn, with_neg, q_total
+        )
+    if _overlap_smem_bytes(depth, q_total) > _SMEM_BYTES:
+        raise SpecError(
+            f"Q={q_total} at ring depth {depth} needs more than the"
+            f" {_SMEM_BYTES} bytes of shared memory a block may use"
+        )
+    # CUDA reads out of bounds where the TPU's DMA faulted: every list
+    # entry must name a tile of the store (one host fetch).
+    lists = torch.cat([lists_pos, lists_neg], dim=1) if with_neg else lists_pos
+    if bool(((lists < 0) | (lists >= t)).any()):
+        raise SketchValueError(f"a needed-tile list names a tile outside [0, {t})")
+    dev = state.device
+    for name in ("bins_pos",) + (("bins_neg",) if with_neg else ()):
+        _check(getattr(state, name), name, torch.float32, (n, spec.n_bins), dev)
+        _check_aligned(getattr(state, name), name)
+    out = torch.empty((n, q_total), dtype=torch.float32, device=dev)
+    _launch(
+        "sk_overlap", dev,
+        _ptr(state.bins_pos), _ptr(state.bins_neg) if with_neg else None,
+        _ptr(lists_pos), _ptr(lists_neg) if with_neg else None,
+        _ptr(packed), _ptr(out), _ptr(_mapping_consts(spec.mapping, dev)),
+        spec.mapping.kernel_id, n, spec.n_bins, q_total, packed.shape[1],
+        bn, k_tiles, depth,
+    )
+    fused_quantile_tiles_overlap.launches += 1
+    return out
+
+
+def fused_quantile_tiles_overlap_plain(
+    spec, state, lists_pos, lists_neg, packed, bn, with_neg, q_total
+):
+    """Plain PyTorch version of the overlap kernel: a (stream, q) folds its
+    crossing tile only where that tile is an entry of its block's list (a
+    repeated pad entry folds nothing more), and reads a zero tile
+    otherwise; then the tile kernels' count and decode."""
+    n = state.n_streams
+    t = spec.n_tiles
+    ut = packed[:, q_total : 2 * q_total].to(torch.int64)
+    block = torch.arange(n, device=packed.device) // bn
+
+    def listed(lists, tiles):
+        entries = lists[block].to(torch.int64)  # [N, K]
+        return (entries[:, None, :] == tiles[:, :, None]).any(-1)
+
+    is_neg = ut >= t
+    found = listed(lists_pos, ut)
+    if with_neg:
+        found = torch.where(is_neg, listed(lists_neg, ut - t), found)
+    else:
+        found = found & ~is_neg
+    blk = _crossing_tiles(spec, state, packed, with_neg, q_total)
+    blk = torch.where(found[:, :, None], blk, 0.0)
+    return _count_and_decode(spec, blk, packed, with_neg, q_total)
+
+
+_KERNEL_WRAPPERS = (
+    ingest_histogram,
+    fused_quantile,
+    fused_quantile_windowed,
+    fused_quantile_tiles,
+    fused_quantile_tiles_overlap,
+)
 reset_launch_counts()

@@ -54,7 +54,7 @@ def _specs(**kw):
 
 def _to_port(spec_t, jstate):
     return convert.state_from_numpy(
-        spec_t, {f: np.asarray(getattr(jstate, f)) for f in LEAVES}
+        spec_t, {f: np.asarray(getattr(jstate, f)) for f in LEAVES}, device="cpu"
     )
 
 
@@ -128,7 +128,7 @@ def test_spec_fields_hash_and_dtypes():
 @pytest.mark.parametrize("int_bins", [False, True])
 def test_init_leaves_match_jax(int_bins):
     js, ts = _specs(n_bins=640, int_bins=int_bins)  # ragged last tile
-    assert_state_equal(tb.init(ts, 256), jb.init(js, 256))
+    assert_state_equal(tb.init(ts, 256, "cpu"), jb.init(js, 256))
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +141,7 @@ def test_add_and_quantile_match_jax(regime):
     js, ts = _specs(n_bins=512)
     v = REGIMES[regime](np.random.RandomState(1)).astype(np.float32)
     ref = jax.block_until_ready(jb.add(js, jb.init(js, 128), jnp.asarray(v)))
-    got = tb.add(ts, tb.init(ts, 128), torch.from_numpy(v))
+    got = tb.add(ts, tb.init(ts, 128, "cpu"), torch.from_numpy(v))
     assert_state_equal(got, ref, abs_scale=_abs_scale(v))
     qj = np.asarray(jb.quantile(js, ref, jnp.asarray(QS)))
     qt = tb.quantile(ts, got, QS).numpy()
@@ -165,7 +165,7 @@ def test_add_nan_padding_and_per_stream_offsets():
     w[5, 0] = 1.0  # one live NaN: poisons that stream's sum
     offs = r.randint(-400, -100, 128).astype(np.int32)
     jst = jb.recenter(js, jb.init(js, 128), jnp.asarray(offs))
-    tst = tb.recenter(ts, tb.init(ts, 128), torch.from_numpy(offs))
+    tst = tb.recenter(ts, tb.init(ts, 128, "cpu"), torch.from_numpy(offs))
     ref = jax.block_until_ready(jb.add(js, jst, jnp.asarray(v), jnp.asarray(w)))
     got = tb.add(ts, tst, torch.from_numpy(v), torch.from_numpy(w))
     assert np.isnan(got.sum[5].item()) and np.isnan(float(ref.sum[5]))
@@ -186,7 +186,7 @@ def test_merge_merge_axis_and_merge_aligned_match_jax(int_bins):
     ja, jb_ = jax.block_until_ready(
         [jb.add(js, jb.init(js, 128), jnp.asarray(x)) for x in (va, vb)]
     )
-    ta, tb_ = (tb.add(ts, tb.init(ts, 128), torch.from_numpy(x)) for x in (va, vb))
+    ta, tb_ = (tb.add(ts, tb.init(ts, 128, "cpu"), torch.from_numpy(x)) for x in (va, vb))
     scale = _abs_scale(va) + _abs_scale(vb)
     assert_state_equal(tb.merge(ts, ta, tb_), jb.merge(js, ja, jb_), abs_scale=scale)
     stacked_j = jb.SketchState(*[jnp.stack([getattr(ja, f), getattr(jb_, f)]) for f in LEAVES])
@@ -211,7 +211,7 @@ def test_recenter_auto_offset_and_recenter_to_data_match_jax():
     )
     w = (r.rand(128, 256) > 0.1).astype(np.float32)
     v[7] = 0.0  # no live nonzero value: keeps its offset
-    ji, ti = jb.init(js, 128), tb.init(ts, 128)
+    ji, ti = jb.init(js, 128), tb.init(ts, 128, "cpu")
     oj = np.asarray(jb.auto_offset(js, ji, jnp.asarray(v), jnp.asarray(w)))
     ot = tb.auto_offset(ts, ti, torch.from_numpy(v), torch.from_numpy(w)).numpy()
     np.testing.assert_array_equal(ot, oj)
@@ -246,7 +246,7 @@ def test_int32_bins_stay_exact_past_2_24():
     w[:, 0] = 2.0**24
     w[:, 64] = 2.0**24 + 2.0
     ref = jax.block_until_ready(jb.add(js, jb.init(js, 128), jnp.asarray(v), jnp.asarray(w)))
-    got = tb.add(ts, tb.init(ts, 128), torch.from_numpy(v), torch.from_numpy(w))
+    got = tb.add(ts, tb.init(ts, 128, "cpu"), torch.from_numpy(v), torch.from_numpy(w))
     for _ in range(3):
         ref = jax.block_until_ready(jb.add(js, ref, jnp.asarray(v)))
         got = tb.add(ts, got, torch.from_numpy(v))
@@ -275,7 +275,7 @@ def test_convert_round_trip_of_a_jax_state():
         rtol=1e-6, equal_nan=True,
     )
     with pytest.raises(SpecError):
-        convert.state_from_numpy(ts, {f: back[f] for f in LEAVES if f != "sum"})
+        convert.state_from_numpy(ts, {f: back[f] for f in LEAVES if f != "sum"}, "cpu")
     bad = dict(back, bins_pos=back["bins_pos"].astype(np.int32))
     with pytest.raises(SpecError):
-        convert.state_from_numpy(ts, bad)
+        convert.state_from_numpy(ts, bad, "cpu")

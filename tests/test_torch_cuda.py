@@ -5,6 +5,9 @@ device and skips without one.  On a machine with a card (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
+The overlap kernel must also equal the tile kernel exactly (the same
+tiles, scans and decode).
+
 Tolerances: unit-weight ingest is bit-identical to the plain version (exact
 integer masses); weighted histograms and counters agree to rtol 1e-5 (f32
 sums over up to S terms, taken in another order) and a weighted call is
@@ -141,6 +144,59 @@ def test_tiles_kernel_vs_plain(dev, mixed, n_q):
     assert _rel_ok(got, batched.quantile(spec, st, qs), 1e-6)
 
 
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("n_bins", [512, 2048, 300])
+@pytest.mark.parametrize("n_q", [4, 40])
+def test_quantile_kernel_vs_plain(dev, mixed, n_bins, n_q):
+    spec = batched.SketchSpec(0.01, n_bins=n_bins)
+    st = _state(spec, 264, 5, dev, mixed)
+    qs = torch.linspace(-0.1, 1.1, n_q, device=dev)
+    before = kernels.fused_quantile.launches
+    got = kernels.fused_quantile(spec, st, qs)
+    assert kernels.fused_quantile.launches == before + 1
+    cpu = st.map(lambda t: t.cpu())
+    assert _rel_ok(got, kernels.fused_quantile(spec, cpu, qs.cpu()), 1e-6)
+    assert _rel_ok(got, batched.quantile(spec, st, qs), 1e-6)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("lookahead", [1, 2, 8])
+@pytest.mark.parametrize("block_streams", [0, 256])
+def test_overlap_kernel_vs_plain(dev, mixed, lookahead, block_streams):
+    spec = batched.SketchSpec(0.01, n_bins=1024)
+    st = _state(spec, 1024, 6, dev, mixed)
+    qs = torch.tensor([0.0, 0.25, 0.5, 0.9, 0.99, 0.999, 1.0, -0.1], device=dev)
+    k_tiles, with_neg = kernels.plan_tile_query(spec, st, qs)
+    cpu = st.map(lambda t: t.cpu())
+    for wn in {with_neg, True}:
+        for k in {k_tiles, spec.n_tiles}:
+            before = kernels.fused_quantile_tiles_overlap.launches
+            got = kernels.fused_quantile_tiles_overlap(
+                spec, st, qs, k_tiles=k, with_neg=wn, block_streams=block_streams,
+                lookahead=lookahead)
+            assert kernels.fused_quantile_tiles_overlap.launches == before + 1
+            ref = kernels.fused_quantile_tiles_overlap(
+                spec, cpu, qs.cpu(), k_tiles=k, with_neg=wn, block_streams=block_streams,
+                lookahead=lookahead)
+            assert _rel_ok(got, ref, 1e-6)
+            tiles = kernels.fused_quantile_tiles(spec, st, qs, k_tiles=k, with_neg=wn)
+            assert torch.equal(torch.isnan(got), torch.isnan(tiles))
+            assert torch.equal(got.nan_to_num(), tiles.nan_to_num())
+
+
+def test_overlap_kernel_honours_short_lists(dev):
+    """With k_tiles below a block's needed-tile union, ranks whose tile is
+    not listed fold a zero tile -- the TPU kernel's contract, which the
+    plain version repeats."""
+    spec = batched.SketchSpec(0.01, n_bins=1024)
+    st = _state(spec, 512, 7, dev, True)
+    qs = torch.tensor([0.1, 0.5, 0.9, 0.99], device=dev)
+    got = kernels.fused_quantile_tiles_overlap(spec, st, qs, k_tiles=1, lookahead=2)
+    cpu = st.map(lambda t: t.cpu())
+    ref = kernels.fused_quantile_tiles_overlap(spec, cpu, qs.cpu(), k_tiles=1, lookahead=2)
+    assert _rel_ok(got, ref, 1e-6)
+
+
 def test_wrapper_rejects_bad_operands(dev):
     too_wide = batched.SketchSpec(0.01, n_bins=30720)  # 240 KB of histograms a stream
     with pytest.raises(SpecError):
@@ -163,8 +219,12 @@ def test_facade_routes_through_kernels(dev):
     kernels.reset_launch_counts()
     for _ in range(3):
         sk.add(r.lognormal(0, 2, (1024, 256)).astype(np.float32))
-    tier, vals = sk.get_quantile_values_resolved([0.5, 0.9, 0.99, 0.999])
+    qs = [0.5, 0.9, 0.99, 0.999]
+    tier, vals = sk.get_quantile_values_resolved(qs)
     counts = kernels.launch_counts()
-    assert tier == "windowed" and counts["fused_quantile_windowed"] == 1
+    assert tier == "overlap" and counts["fused_quantile_tiles_overlap"] == 1
     assert counts["ingest_histogram"] == 2  # the first batch auto-centres
     assert bool(torch.isfinite(vals).all())
+    tier, again = sk.get_quantile_values_resolved(qs, disabled_tiers=("overlap",))
+    assert tier == "windowed" and kernels.launch_counts()["fused_quantile_windowed"] == 1
+    assert torch.equal(vals, again)

@@ -1,9 +1,11 @@
 """The port's ``BatchedDDSketch`` end to end against the JAX facade, on the CPU.
 
 The port runs with ``device="cpu"`` (each kernel's plain version); the JAX
-facade runs ``engine="pallas"`` (its kernels in interpret mode) with the
-overlap engine switched off, the configuration this slice ports.  Both
+facade runs ``engine="pallas"`` (its kernels in interpret mode).  Both
 ingest the same three batches of 256 streams x 256 values at 512 bins.
+Most tests switch the overlap engine off on both sides
+(``SKETCHES_TPU_OVERLAP=0``) to hold the windowed/tiles ladder; the
+overlap tests run both with it on, its default.
 
 Tolerances, with their reasons:
 
@@ -27,6 +29,7 @@ import torch
 
 from sketches_tpu import batched as jb
 from sketches_tpu_torch import batched as tb
+from sketches_tpu_torch import convert
 from sketches_tpu_torch.resilience import (
     SketchValueError,
     SpecError,
@@ -98,6 +101,33 @@ def test_facade_matches_jax(overlap_off, mix):
     assert inside.mean() > 0.9
     err = np.abs(vt.numpy()[inside] - exact[inside])
     assert np.all(err <= ALPHA * np.abs(exact[inside]) * (1 + 1e-6))
+
+
+@pytest.mark.parametrize("mix,ladder_tier", [("lognormal2", "windowed"), ("mixed40", "tiles")])
+def test_overlap_is_the_default_route_like_jax(monkeypatch, mix, ladder_tier):
+    monkeypatch.delenv("SKETCHES_TPU_OVERLAP", raising=False)
+    batches = _batches(mix, seed=7)
+    j = jb.BatchedDDSketch(N, relative_accuracy=ALPHA, n_bins=512, engine="pallas")
+    t = tb.BatchedDDSketch(N, relative_accuracy=ALPHA, n_bins=512, device="cpu")
+    for v in batches:
+        jax.block_until_ready(j.add(v).state)
+        t.add(v)
+    answers = []
+    for off in ((), ("overlap",)):
+        tier_j, vj = j.get_quantile_values_resolved(QS, disabled_tiers=off)
+        vj = np.asarray(jax.block_until_ready(vj))
+        tier_t, vt = t.get_quantile_values_resolved(QS, disabled_tiers=off)
+        assert tier_t == tier_j == ("overlap" if not off else ladder_tier)
+        np.testing.assert_allclose(vt.numpy(), vj, rtol=1e-6)
+        answers.append(vt)
+    # The engines answer identically; the switch sends both facades down
+    # the ladder.
+    assert torch.equal(answers[0], answers[1])
+    monkeypatch.setenv("SKETCHES_TPU_OVERLAP", "0")
+    tier_j, vj = j.get_quantile_values_resolved(QS)
+    tier_t, vt = t.get_quantile_values_resolved(QS)
+    assert tier_t == tier_j == ladder_tier
+    assert torch.equal(vt, answers[0])
 
 
 def test_disabled_tiers_and_plain_engine_route_like_jax(overlap_off):
@@ -235,13 +265,18 @@ def test_chunked_stream_ops_match_one_pass(monkeypatch):
 
 
 def test_default_device_is_the_card():
-    state = tb.init(tb.SketchSpec(n_bins=512), N)
+    state = tb.init(tb.SketchSpec(n_bins=512), N, device="cpu")
     sk = tb.BatchedDDSketch(N, spec=tb.SketchSpec(n_bins=512), state=state)
     assert sk.device == torch.device("cpu")
     if torch.cuda.is_available():
         assert tb.BatchedDDSketch(N, n_bins=512).device.type == "cuda"
+        assert tb.init(tb.SketchSpec(n_bins=512), N).device.type == "cuda"
     else:
         with pytest.raises(SpecError):
             tb.BatchedDDSketch(N, n_bins=512)
+        with pytest.raises(SpecError):
+            tb.init(tb.SketchSpec(n_bins=512), N)
+        with pytest.raises(SpecError):
+            convert.state_from_numpy(tb.SketchSpec(n_bins=512), convert.state_to_numpy(state))
         with pytest.raises(SpecError):
             tb.BatchedDDSketch(N, n_bins=512, device="cuda")

@@ -40,6 +40,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "before = set(sys.modules)\n"
         "import sketches_tpu_torch\n"
         "from sketches_tpu_torch import _build, batched, convert, kernels, mapping\n"
+        "from sketches_tpu_torch import parallel, resilience\n"
         "added = sorted(set(sys.modules) - before)\n"
         "print(json.dumps(added))\n"
     )

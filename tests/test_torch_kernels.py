@@ -56,7 +56,9 @@ def _specs(n_bins=512, **kw):
 
 
 def _port(spec_t, jstate):
-    return convert.state_from_numpy(spec_t, {f: np.asarray(getattr(jstate, f)) for f in LEAVES})
+    return convert.state_from_numpy(
+        spec_t, {f: np.asarray(getattr(jstate, f)) for f in LEAVES}, device="cpu"
+    )
 
 
 def _states(regime, seed=0, empty_every=0):
@@ -144,7 +146,7 @@ def test_kernel_add_matches_jax(weighted, int_bins):
     tw = None if w is None else torch.from_numpy(w)
     jst = jk.add(js, jb.init(js, 128), jnp.asarray(v), jw, interpret=True)
     jst = jax.block_until_ready(jk.add(js, jst, jnp.asarray(v), jw, interpret=True))
-    tst = tk.add(ts, tb.init(ts, 128), torch.from_numpy(v), tw)
+    tst = tk.add(ts, tb.init(ts, 128, "cpu"), torch.from_numpy(v), tw)
     tst = tk.add(ts, tst, torch.from_numpy(v), tw)
     for f in LEAVES:
         g, rf = getattr(tst, f).numpy(), np.asarray(getattr(jst, f))
@@ -160,7 +162,7 @@ def test_kernel_add_matches_jax(weighted, int_bins):
 
 def test_integer_kernel_add_guards():
     _, ts = _specs(int_bins=True)
-    st = tb.init(ts, 128)
+    st = tb.init(ts, 128, "cpu")
     v = torch.ones((128, 128))
     with pytest.raises(NotImplementedError):
         tk.add(ts, st, v, torch.ones_like(v))
@@ -344,12 +346,15 @@ def test_cpu_runs_launch_no_kernel_and_kernel_engine_needs_cuda():
     tk.ingest_histogram(ts, torch.ones((128, 128)), None, tst.key_offset[:128], weighted=False)
     tk.fused_quantile_windowed(ts, tst, QS, 0, n_wblocks=1, w_tiles=4)
     tk.fused_quantile_tiles(ts, tst, QS, k_tiles=4)
+    tk.fused_quantile_tiles_overlap(ts, tst, QS, k_tiles=4)
+    tk.fused_quantile(ts, tst, QS)
     sk = tb.BatchedDDSketch(256, n_bins=512, device="cpu")
     sk.add(np.ones((256, 128), np.float32))
     sk.add(np.ones((256, 128), np.float32))
     sk.get_quantile_values([0.5])
     assert tk.launch_counts() == {
-        "ingest_histogram": 0, "fused_quantile_windowed": 0, "fused_quantile_tiles": 0,
+        "ingest_histogram": 0, "fused_quantile": 0, "fused_quantile_windowed": 0,
+        "fused_quantile_tiles": 0, "fused_quantile_tiles_overlap": 0,
     }
     with pytest.raises(SpecError):
         tb.BatchedDDSketch(256, n_bins=512, device="cpu", engine="kernel")
