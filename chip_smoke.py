@@ -27,6 +27,14 @@ bound; one JSON line is printed per phase.  The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.  Imports torch and numpy, never JAX.
+
+    python3 chip_smoke.py --compare build/cmp/parent [--compare DIR ...]
+
+also builds the ingest and overlap kernels of other trees (each DIR holds
+``sketches_tpu_torch/csrc``: a ``git archive`` of the parent commit, or a
+patched copy, unpacked under the gitignored ``build/``) and times them
+beside this tree's, in turns on the same card; the results ride in the
+``times`` line under ``compare``, labelled by DIR's name.
 """
 
 from __future__ import annotations
@@ -60,6 +68,8 @@ F32_OPS_RATE = 67e12
 # (scan step and threshold compares) plus ~60 per output (decode).
 INGEST_OPS_PER_VALUE = 40
 QUERY_DECODE_OPS = 60
+# Back-to-back launches per timed run of a kernel alone (event_ms inner).
+KERNEL_INNER = 10
 
 
 class SmokeFailure(AssertionError):
@@ -80,11 +90,16 @@ def emit(phase: str, **fields) -> None:
 # ---------------------------------------------------------------------------
 
 
-def event_ms(fn, *, warmup: int = 3, reps: int = 11) -> float:
-    """Median device time of ``fn()`` in ms, each run timed with CUDA events."""
+def event_ms(fn, *, warmup: int = 3, reps: int = 11, inner: int = 1) -> float:
+    """Median device time of ``fn()`` in ms, each run timed with CUDA events.
+
+    ``inner`` > 1 times that many back-to-back calls per run and divides:
+    the host enqueues the next launch while the card runs the last, so a
+    kernel's time excludes the host's launch overhead.  Warm-up scales with
+    ``inner`` (the card's clocks settle over the first few milliseconds)."""
     import torch
 
-    for _ in range(warmup):
+    for _ in range(warmup * inner):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -92,11 +107,85 @@ def event_ms(fn, *, warmup: int = 3, reps: int = 11) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def c_entry(lib, name: str):
+    """``name`` of a loaded kernel library, typed as the port binds it."""
+    import ctypes
+
+    from sketches_tpu_torch import kernels
+
+    fn = getattr(lib, name)
+    fn.argtypes = kernels._ENTRY_ARGS[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launcher(fn, *args):
+    """A no-argument call of C entry ``fn`` on the current stream."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = fn(*args, stream)
+        require(err == 0, f"launch failed with CUDA error {err}")
+
+    return run
+
+
+def alternate_ms(runs: dict) -> dict:
+    """Time each labelled launcher in turns a, b, ..., b, a (one card, one
+    call) -> {label: [first median, second median]}."""
+    order = list(runs) + list(reversed(list(runs)))
+    got = {k: [] for k in runs}
+    for k in order:
+        got[k].append(event_ms(runs[k], inner=KERNEL_INNER))
+    return got
+
+
+def host_us(fn, *, calls: int = 200, reps: int = 5) -> float:
+    """Host time of one ``fn()`` launch in microseconds: the wall time of
+    enqueueing ``calls`` back-to-back launches (the card drains them
+    afterwards), divided; median of ``reps``."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+def compare_ms(runs: dict) -> dict:
+    """{label: mean of its two turns} from :func:`alternate_ms`."""
+    return {k: mean(v) for k, v in alternate_ms(runs).items()}
+
+
+def sm_clock_mhz():
+    """The card's current SM clock in MHz from ``nvidia-smi`` (None when it
+    cannot be read)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                              "--format=csv,noheader,nounits", "-i", "0"],
+                             capture_output=True, text=True, timeout=30)
+        return float(out.stdout.strip().splitlines()[0])
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+        return None
 
 
 def mem_rate(name: str) -> float:
@@ -174,7 +263,7 @@ def phase_build() -> None:
     total = time.perf_counter() - t0
     resources = {
         src: [ln.strip() for ln in _build.build_log(src).splitlines()
-              if "registers" in ln or "spill" in ln][:8]
+              if "registers" in ln or "spill" in ln]
         for src in _build.SOURCES
     }
     emit("build", seconds=total, per_source=per_source, ptxas=resources)
@@ -199,8 +288,8 @@ def _edge_values(gen, n, s, device):
 def phase_kernels_vs_plain(device) -> dict:
     """Each kernel against its plain version on the card, at the entry
     step's width (1024 streams x 2048 bins, batch 256) and at 512 bins; the
-    overlap kernel with and without the negative store, at ring lookahead 1
-    and 8."""
+    overlap kernel with and without the negative store, at ring lookahead 1,
+    4 and 8."""
     import torch
 
     from sketches_tpu_torch import batched, kernels
@@ -296,7 +385,7 @@ def phase_kernels_vs_plain(device) -> dict:
             require_rel(got, full, 1e-6, "tiles vs batched.quantile")
             # K5 against its plain version, and equal to K3 exactly.
             for wn in (False, True):
-                for lookahead in (1, 8):
+                for lookahead in (1, 4, 8):
                     got = kernels.fused_quantile_tiles_overlap(
                         spec, st, qs, k_tiles=k_tiles, with_neg=wn, lookahead=lookahead)
                     bn = kernels._stream_block(n)
@@ -522,8 +611,33 @@ def phase_distributed(device) -> dict:
     return out
 
 
-def time_ingest(device, rate: float) -> dict:
-    """K1 at the main path's launch shape: one stream chunk x 256 values."""
+def build_compare(trees) -> dict:
+    """Compile other trees' ingest.cu and overlap.cu (the same C entry
+    points) with this tree's flags, every tree at once -> {tree name:
+    {entry name: function}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sketches_tpu_torch import _build
+
+    sources = {"sk_ingest": "ingest.cu", "sk_overlap": "overlap.cu"}
+    csrcs = {Path(t).name: Path(t).resolve() / "sketches_tpu_torch" / "csrc" for t in trees}
+    require(len(csrcs) == len(trees), "--compare trees need distinct names")
+    with ThreadPoolExecutor(len(csrcs)) as pool:
+        list(pool.map(lambda c: _build.build(list(sources.values()), c), csrcs.values()))
+    return {label: {e: c_entry(_build.library(src, c), e) for e, src in sources.items()}
+            for label, c in csrcs.items()}
+
+
+def time_ingest(device, rate: float, others: dict) -> dict:
+    """K1 alone at the main path's launch shape, one stream chunk x 256
+    values: lognormal values (the ``kernels`` line's row), a constant batch
+    (every value in one bin, the heaviest skew) and a weighted call, timed
+    in turns (lognormal, constant, weighted, weighted, constant, lognormal);
+    each ``ms`` is the mean of its two turns, ``turns_ms`` both of them and
+    ``sm_mhz`` the SM clock read just before the first; ``host_us`` is the
+    host's time to launch it.  ``others`` ({label: sk_ingest of another
+    build}) are timed beside this kernel in turns, on each of the three
+    batches, and their host times beside its own."""
     import torch
 
     from sketches_tpu_torch import batched, kernels
@@ -532,15 +646,46 @@ def time_ingest(device, rate: float) -> dict:
     n = batched._stream_chunk(N_STREAMS, N_BINS) or N_STREAMS
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     v = torch.empty((n, BATCH), device=device).log_normal_(0.0, 2.0, generator=gen)
+    const = torch.full_like(v, 3.7)
+    w = torch.rand((n, BATCH), device=device, generator=gen) * 2.0
     koff = torch.full((n,), -(N_BINS // 2) + 64, dtype=torch.int32, device=device)
-    ms = event_ms(lambda: kernels.ingest_histogram(spec, v, None, koff, weighted=False))
-    plain_ms = event_ms(lambda: kernels.ingest_histogram_plain(spec, v, None, koff,
-                                                               weighted=False))
     ncols = kernels._ncols(spec.n_tiles)
+    hist_pos = torch.empty((n, N_BINS), dtype=torch.float32, device=device)
+    hist_neg = torch.empty_like(hist_pos)
+    cols = torch.empty((n, ncols), dtype=torch.float32, device=device)
+    consts = kernels._mapping_consts(spec.mapping, device)
+
+    def run(fn, x, weights=None):
+        return launcher(fn, x.data_ptr(), None if weights is None else weights.data_ptr(),
+                        koff.data_ptr(), hist_pos.data_ptr(), hist_neg.data_ptr(),
+                        cols.data_ptr(), consts.data_ptr(), spec.mapping.kernel_id, n, BATCH,
+                        N_BINS, ncols)
+
+    def plain(x, weights=None):
+        return lambda: kernels.ingest_histogram_plain(spec, x, weights, koff,
+                                                      weighted=weights is not None)
+
+    fn = kernels._entry("sk_ingest")
+    batches = {"lognormal": (v,), "constant": (const,), "weighted": (v, w)}
+    sm_mhz = sm_clock_mhz()
+    turns = alternate_ms({label: run(fn, *b) for label, b in batches.items()})
     bytes_moved = 4 * (n * BATCH + n + 2 * n * N_BINS + n * ncols)
     ops = INGEST_OPS_PER_VALUE * n * BATCH + 2 * n * N_BINS
-    return {"ms": ms, "plain_ms": plain_ms, "shape": [n, BATCH, N_BINS],
-            **bound(bytes_moved, ops, rate)}
+    out = {"ms": mean(turns["lognormal"]), "turns_ms": turns["lognormal"],
+           "plain_ms": event_ms(plain(v)), "shape": [n, BATCH, N_BINS], "sm_mhz": sm_mhz,
+           "host_us": host_us(run(fn, v)), **bound(bytes_moved, ops, rate)}
+    out["constant"] = {"ms": mean(turns["constant"]), "turns_ms": turns["constant"],
+                       "plain_ms": event_ms(plain(const))}
+    out["weighted"] = {"ms": mean(turns["weighted"]), "turns_ms": turns["weighted"],
+                       "plain_ms": event_ms(plain(v, w)),
+                       **bound(bytes_moved + 4 * n * BATCH, ops, rate)}
+    if others:
+        out["compare"] = {
+            label: compare_ms({"this": run(fn, *b), **{k: run(f, *b) for k, f in others.items()}})
+            for label, b in batches.items()
+        }
+        out["compare_host_us"] = {k: host_us(run(f, v)) for k, f in others.items()}
+    return out
 
 
 def _distinct_tiles(spec, packed, q: int, device) -> int:
@@ -556,11 +701,14 @@ def _distinct_tiles(spec, packed, q: int, device) -> int:
     return torch.unique(ids[ids >= 0]).numel()
 
 
-def time_query(device, facade, tier: str, rate: float, lookahead: int = 8) -> dict:
+def time_query(device, facade, tier: str, rate: float, lookahead: int = 8,
+               others: dict = None) -> dict:
     """One query kernel alone on a main path's final state, with the
     operands the wrapper builds prepared beforehand: ``windowed``,
     ``tiles``, ``overlap`` (ring depth from ``lookahead``, the wrapper's
-    default 8) or ``xla`` (``fused_quantile``)."""
+    default 8) or ``xla`` (``fused_quantile``).  ``others`` ({label:
+    sk_overlap of another build}) are timed beside the overlap kernel in
+    turns."""
     import torch
 
     from sketches_tpu_torch import kernels
@@ -569,17 +717,16 @@ def time_query(device, facade, tier: str, rate: float, lookahead: int = 8) -> di
     qs = torch.tensor(QS, dtype=torch.float32, device=device)
     n, q = st.n_streams, len(QS)
     lo_w, n_w, w_t, with_neg = kernels.plan_state_window(spec, st)
-    consts = kernels._mapping_consts(spec.mapping, device)
+    consts = kernels._mapping_consts(spec.mapping, device).data_ptr()
     out = torch.empty((n, q), dtype=torch.float32, device=device)
+    pos = st.bins_pos.data_ptr()
+    mid = spec.mapping.kernel_id
     if tier == "windowed":
         packed = kernels._windowed_packed(st, qs)
         lo_bin, ntw = lo_w * w_t * 128, n_w * w_t
-
-        def run():
-            kernels._launch("sk_windowed", device, st.bins_pos.data_ptr(),
-                            st.bins_neg.data_ptr() if with_neg else None, packed.data_ptr(),
-                            out.data_ptr(), consts.data_ptr(), spec.mapping.kernel_id, n,
-                            spec.n_bins, q, packed.shape[1], lo_bin, ntw)
+        entry = "sk_windowed"
+        args = (pos, st.bins_neg.data_ptr() if with_neg else None, packed.data_ptr(),
+                out.data_ptr(), consts, mid, n, spec.n_bins, q, packed.shape[1], lo_bin, ntw)
 
         def plain():
             kernels.fused_quantile_windowed_plain(spec, st, packed, lo_bin, ntw, with_neg, q)
@@ -591,12 +738,9 @@ def time_query(device, facade, tier: str, rate: float, lookahead: int = 8) -> di
     elif tier == "tiles":
         k_tiles, with_neg = kernels.plan_tile_query(spec, st, qs)
         packed = kernels._tiles_packed(spec, st, qs)
-
-        def run():
-            kernels._launch("sk_tiles", device, st.bins_pos.data_ptr(),
-                            st.bins_neg.data_ptr() if with_neg else None, packed.data_ptr(),
-                            out.data_ptr(), consts.data_ptr(), spec.mapping.kernel_id, n,
-                            spec.n_bins, q, packed.shape[1])
+        entry = "sk_tiles"
+        args = (pos, st.bins_neg.data_ptr() if with_neg else None, packed.data_ptr(),
+                out.data_ptr(), consts, mid, n, spec.n_bins, q, packed.shape[1])
 
         def plain():
             kernels.fused_quantile_tiles_plain(spec, st, packed, with_neg, q)
@@ -610,14 +754,10 @@ def time_query(device, facade, tier: str, rate: float, lookahead: int = 8) -> di
         bn = kernels._stream_block(n)
         depth = kernels._overlap_depth((2 if with_neg else 1) * k_tiles, lookahead)
         lists_pos, lists_neg, packed = kernels._tile_query_operands(spec, st, qs, bn, k_tiles)
-
-        def run():
-            kernels._launch("sk_overlap", device, st.bins_pos.data_ptr(),
-                            st.bins_neg.data_ptr() if with_neg else None,
-                            lists_pos.data_ptr(), lists_neg.data_ptr() if with_neg else None,
-                            packed.data_ptr(), out.data_ptr(), consts.data_ptr(),
-                            spec.mapping.kernel_id, n, spec.n_bins, q, packed.shape[1], bn,
-                            k_tiles, depth)
+        entry = "sk_overlap"
+        args = (pos, st.bins_neg.data_ptr() if with_neg else None, lists_pos.data_ptr(),
+                lists_neg.data_ptr() if with_neg else None, packed.data_ptr(), out.data_ptr(),
+                consts, mid, n, spec.n_bins, q, packed.shape[1], bn, k_tiles, depth)
 
         def plain():
             kernels.fused_quantile_tiles_overlap_plain(
@@ -637,12 +777,10 @@ def time_query(device, facade, tier: str, rate: float, lookahead: int = 8) -> di
         extra = {"distinct_tiles": distinct, "k_tiles": k_tiles, "with_neg": with_neg,
                  "depth": depth, "block_streams": bn, "slab_bytes_read": bytes_read}
     else:
-        def run():
-            kernels._launch("sk_quantile", device, st.bins_pos.data_ptr(),
-                            st.bins_neg.data_ptr(), st.zero_count.data_ptr(),
-                            st.count.data_ptr(), st.key_offset.data_ptr(), qs.data_ptr(),
-                            out.data_ptr(), consts.data_ptr(), spec.mapping.kernel_id, n,
-                            spec.n_bins, q)
+        entry = "sk_quantile"
+        args = (pos, st.bins_neg.data_ptr(), st.zero_count.data_ptr(), st.count.data_ptr(),
+                st.key_offset.data_ptr(), qs.data_ptr(), out.data_ptr(), consts, mid, n,
+                spec.n_bins, q)
 
         def plain():
             kernels.fused_quantile_plain(spec, st, qs)
@@ -650,12 +788,24 @@ def time_query(device, facade, tier: str, rate: float, lookahead: int = 8) -> di
         bytes_moved = 4 * (2 * n * spec.n_bins + 3 * n + q + n * q)
         ops = 2 * n * spec.n_bins * (1 + q) + QUERY_DECODE_OPS * n * q
         extra = {"with_neg": True}
-    ms = event_ms(run)
+    run = launcher(kernels._entry(entry), *args)
+    ms = event_ms(run, inner=KERNEL_INNER)
     plain_ms = event_ms(plain)
+    if others:
+        extra["compare"] = compare_ms(
+            {"this": run, **{k: launcher(f, *args) for k, f in others.items()}})
     return {"ms": ms, "plain_ms": plain_ms, **extra, **bound(bytes_moved, ops, rate)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", type=Path, action="append", default=[], metavar="DIR",
+                    help="another tree holding sketches_tpu_torch/csrc (e.g. a git archive of"
+                         " the parent commit): time its ingest and overlap kernels beside"
+                         " this tree's, in turns; may be repeated")
+    opts = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -674,30 +824,36 @@ def main() -> int:
     card = phase_card()
     rate = card["mem_rate_Bps"]
     phase_build()
+    trees = build_compare(opts.compare) if opts.compare else {}
+    ingest_others = {k: t["sk_ingest"] for k, t in trees.items()}
+    overlap_others = {k: t["sk_overlap"] for k, t in trees.items()}
     errs = phase_kernels_vs_plain(device)
 
     pos = phase_main_path(device, "positive", 0.0, "windowed")
     t_win = time_query(device, pos["facade"], "windowed", rate)
-    t_over = time_query(device, pos["facade"], "overlap", rate)
+    t_over = time_query(device, pos["facade"], "overlap", rate, others=overlap_others)
     del pos["facade"]
     torch.cuda.empty_cache()
     mixed = phase_main_path(device, "mixed_sign", 0.4, "tiles")
     t_tiles = time_query(device, mixed["facade"], "tiles", rate)
-    t_over_mixed = time_query(device, mixed["facade"], "overlap", rate)
-    # The ring depth sets how many CTAs fit an SM (16 KB a slot): 8 slots
-    # leave room for one, 4 for three.
-    t_over_mixed4 = time_query(device, mixed["facade"], "overlap", rate, lookahead=4)
+    # lookahead 8 (the default: depth 8 on the 8-step mixed walk) and 4; the
+    # kernel caps its ring at 4 slots, so both run the same configuration.
+    t_over_mixed = time_query(device, mixed["facade"], "overlap", rate, others=overlap_others)
+    t_over_mixed4 = time_query(device, mixed["facade"], "overlap", rate, lookahead=4,
+                               others=overlap_others)
     t_full = time_query(device, mixed["facade"], "xla", rate)
     del mixed["facade"]
     torch.cuda.empty_cache()
-    t_ingest = time_ingest(device, rate)
+    t_ingest = time_ingest(device, rate, ingest_others)
     emit("times", card=card["smi"], ingest=t_ingest, windowed=t_win, tiles=t_tiles,
          overlap=t_over, overlap_mixed=t_over_mixed, overlap_mixed_lookahead4=t_over_mixed4,
          fused_quantile=t_full,
-         note="kernel alone vs its plain version at the main path's shapes, CUDA events,"
-              " median of 11 after warm-up; bound = max(bytes/mem rate, f32 ops/67 TFLOP/s);"
-              " overlap on the positive and the mixed final state, fused_quantile on the"
-              " mixed one")
+         note=f"kernel alone at the main path's shapes, CUDA events, median of 11 runs of"
+              f" {KERNEL_INNER} back-to-back launches after warm-up (ingest batches and"
+              f" compare: the same, in turns a, b, ..., b, a, mean of the two medians);"
+              f" plain versions median of"
+              f" 11 single calls; bound = max(bytes/mem rate, f32 ops/67 TFLOP/s); overlap"
+              f" on the positive and the mixed final state, fused_quantile on the mixed one")
     torch.cuda.reset_peak_memory_stats(device)
     dist = phase_distributed(device)
     torch.cuda.empty_cache()
@@ -729,6 +885,13 @@ def main() -> int:
         }
         for name, file, replaces, t in rows
     ]
+    # K5 runs on both traffic mixes' default route: the row's numbers are
+    # the positive state's; the mixed state's (lookahead 8 and 4) ride beside.
+    table[4].update(ms_mixed=t_over_mixed["ms"], plain_ms_mixed=t_over_mixed["plain_ms"],
+                    bound_ms_mixed=t_over_mixed["bound_ms"],
+                    ms_mixed_lookahead4=t_over_mixed4["ms"])
+    table[0].update(ms_constant=t_ingest["constant"]["ms"],
+                    ms_weighted=t_ingest["weighted"]["ms"])
     emit("done", seconds=time.perf_counter() - t_start)
     print(card["smi"])
     print(json.dumps({"kernels": table}))

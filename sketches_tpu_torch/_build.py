@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 from sketches_tpu_torch.resilience import EngineUnavailable
 
@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[Path, str], ctypes.CDLL] = {}  # by csrc directory and source
 
 
 def nvcc_path() -> str:
@@ -52,26 +52,27 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, csrc: Path = CSRC) -> Path:
     """Where ``source``'s library lives: named by a hash of every csrc file
     it may include, the source itself and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
+    for p in sorted(csrc.glob("*.cuh")) + [csrc / source]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(sources: Sequence[str] = SOURCES) -> Dict[str, float]:
+def build(sources: Sequence[str] = SOURCES, csrc: Path = CSRC) -> Dict[str, float]:
     """Compile every source whose library is missing, all in parallel.
 
-    Returns ``{source: seconds}`` for the sources compiled now (an empty
-    dict when everything was built already).  Raises ``EngineUnavailable``
-    with the compiler's output when a build fails.  The compiler's resource
-    report (registers, shared memory, spills) is kept beside each library
-    as ``<name>.log``.
+    ``csrc`` is the package's own sources unless a caller times another
+    tree's (``chip_smoke.py --compare``).  Returns ``{source: seconds}`` for
+    the sources compiled now (an empty dict when everything was built
+    already).  Raises ``EngineUnavailable`` with the compiler's output when
+    a build fails.  The compiler's resource report (registers, shared
+    memory, spills) is kept beside each library as ``<name>.log``.
     """
-    todo = [s for s in sources if not library_path(s).is_file()]
+    todo = [s for s in sources if not library_path(s, csrc).is_file()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -79,9 +80,9 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for src in todo:
-        out = library_path(src)
+        out = library_path(src, csrc)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / src)]
         procs[src] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
@@ -108,10 +109,11 @@ def build_log(source: str) -> str:
     return p.read_text() if p.is_file() else ""
 
 
-def library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source``, built first if it is missing."""
-    lib = _LIBS.get(source)
+def library(source: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library of ``source`` (from ``csrc``), built first if it
+    is missing."""
+    lib = _LIBS.get((csrc, source))
     if lib is None:
-        build([source])
-        lib = _LIBS[source] = ctypes.CDLL(str(library_path(source)))
+        build([source], csrc)
+        lib = _LIBS[csrc, source] = ctypes.CDLL(str(library_path(source, csrc)))
     return lib

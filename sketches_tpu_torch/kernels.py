@@ -1070,24 +1070,33 @@ def _count_and_decode(spec, blk, packed, with_neg, q_total):
 # K5: the tile-list walk through an asynchronous-copy ring
 # ---------------------------------------------------------------------------
 
-# Rows a CTA of the overlap kernel takes at a time, and the shared memory a
-# Hopper block may use (csrc/overlap.cu kRows, kSmemLimit).
-_OVERLAP_ROWS = 32
+# Rows a CTA of the overlap kernel takes at a time, its most ring slots,
+# and the shared memory a Hopper block may use (csrc/overlap.cu kRows,
+# kMaxSlots, kSmemLimit).
+_OVERLAP_ROWS = 16
+_OVERLAP_MAX_SLOTS = 4
 _SMEM_BYTES = 232448
 
 
 def _overlap_depth(n_steps: int, requested: int) -> int:
     """Ring depth: the largest of 8, 4, 2, 1 that is at most ``requested``
-    and divides ``n_steps`` -- so every block's walk starts at ring slot 0."""
+    and divides ``n_steps`` (the JAX package's static-slot rule; the CUDA
+    kernel takes it as its prefetch distance, at most 4 slots)."""
     for d in (8, 4, 2, 1):
         if d <= requested and d <= n_steps and n_steps % d == 0:
             return d
     return 1
 
 
-def _overlap_smem_bytes(depth: int, q_total: int) -> int:
-    """Shared memory of one overlap CTA: the ring plus its [R, Q] counts."""
-    return depth * _OVERLAP_ROWS * LO * 4 + _OVERLAP_ROWS * q_total * 4
+def _overlap_smem_bytes(depth: int, q_total: int, pk_width: int) -> int:
+    """Shared memory of one overlap CTA (csrc/overlap.cu smem_bytes): the
+    ring of ``min(depth, 4)`` slots, two staging buffers of packed rows, the
+    mbarriers, the slot headers and the [R, Q] counts."""
+    r, slots = _OVERLAP_ROWS, min(depth, _OVERLAP_MAX_SLOTS)
+    return (
+        slots * r * LO * 4 + 2 * r * pk_width * 4 + (2 * slots + 4) * 8 + slots * 4
+        + r * q_total * 4
+    )
 
 
 def fused_quantile_tiles_overlap(
@@ -1108,8 +1117,9 @@ def fused_quantile_tiles_overlap(
     block of ``block_streams`` rows (default :func:`_stream_block`) copies
     the tiles of its sorted needed-tile list, positive steps then negative
     ones, through a ring of ``depth`` slots (the largest of 8/4/2/1 that is
-    at most ``lookahead`` and divides the step count), and folds each tile
-    only into the ranks that target it.  CUDA tensors run
+    at most ``lookahead`` and divides the step count: the CUDA kernel's
+    prefetch distance, capped at its 4-slot ring), and folds each tile only
+    into the ranks that target it.  CUDA tensors run
     ``csrc/overlap.cu``; CPU tensors run
     :func:`fused_quantile_tiles_overlap_plain`.
     """
@@ -1140,7 +1150,7 @@ def fused_quantile_tiles_overlap(
         return fused_quantile_tiles_overlap_plain(
             spec, state, lists_pos, lists_neg, packed, bn, with_neg, q_total
         )
-    if _overlap_smem_bytes(depth, q_total) > _SMEM_BYTES:
+    if _overlap_smem_bytes(depth, q_total, packed.shape[1]) > _SMEM_BYTES:
         raise SpecError(
             f"Q={q_total} at ring depth {depth} needs more than the"
             f" {_SMEM_BYTES} bytes of shared memory a block may use"
@@ -1154,6 +1164,7 @@ def fused_quantile_tiles_overlap(
     for name in ("bins_pos",) + (("bins_neg",) if with_neg else ()):
         _check(getattr(state, name), name, torch.float32, (n, spec.n_bins), dev)
         _check_aligned(getattr(state, name), name)
+    _check_aligned(packed, "packed")
     out = torch.empty((n, q_total), dtype=torch.float32, device=dev)
     _launch(
         "sk_overlap", dev,
