@@ -20,6 +20,10 @@ plain PyTorch version on the card, then drives three paths at full size:
   ``disabled_tiers=("windowed", "wxla")`` the floor ``xla`` answers through
   one ``fused_quantile`` launch.
 
+``fused_quantile`` is also checked and timed on a 2048-bin state (262,144
+streams, one mixed-sign batch through the facade: the same bytes as the
+1M x 512 state).
+
 Each path resets the launch counters before it runs and reads them after.
 Answers are checked against the plain facade and against exact quantiles of
 sampled streams; each kernel is timed beside its plain version and its
@@ -30,11 +34,11 @@ and prints no result.  Imports torch and numpy, never JAX.
 
     python3 chip_smoke.py --compare build/cmp/parent [--compare DIR ...]
 
-also builds the ingest and overlap kernels of other trees (each DIR holds
-``sketches_tpu_torch/csrc``: a ``git archive`` of the parent commit, or a
-patched copy, unpacked under the gitignored ``build/``) and times them
-beside this tree's, in turns on the same card; the results ride in the
-``times`` line under ``compare``, labelled by DIR's name.
+also builds the ingest, full-window and overlap kernels of other trees
+(each DIR holds ``sketches_tpu_torch/csrc``: a ``git archive`` of the parent
+commit, or a patched copy, unpacked under the gitignored ``build/``) and
+times them beside this tree's, in turns on the same card; the results ride
+in the ``times`` line under ``compare``, labelled by DIR's name.
 """
 
 from __future__ import annotations
@@ -399,12 +403,15 @@ def phase_kernels_vs_plain(device) -> dict:
                     same = torch.equal(torch.isnan(got), torch.isnan(tiles)) and torch.equal(
                         got.nan_to_num(), tiles.nan_to_num())
                     require(same, f"overlap differs from tiles ({n_bins}, {mixed}, {wn})")
-            # K2 against its plain version and the plain quantile.
-            got = kernels.fused_quantile(spec, st, qs)
-            ref = kernels.fused_quantile_plain(spec, st, qs)
-            errs["fused_quantile"] = max(
-                errs["fused_quantile"], require_rel(got, ref, 1e-6, "fused_quantile"))
-            require_rel(got, full, 1e-6, "fused_quantile vs batched.quantile")
+            # K2 against its plain version and the plain quantile, at 9
+            # quantiles and at the main path's 4.
+            for qk in (qs, qs[:4]):
+                got = kernels.fused_quantile(spec, st, qk)
+                ref = kernels.fused_quantile_plain(spec, st, qk)
+                errs["fused_quantile"] = max(
+                    errs["fused_quantile"], require_rel(got, ref, 1e-6, "fused_quantile"))
+                require_rel(got, batched.quantile(spec, st, qk), 1e-6,
+                            "fused_quantile vs batched.quantile")
     torch.cuda.synchronize()
     emit("kernels_vs_plain", ingest_cases=checked, max_abs_err=errs,
          ingest_sum_col_max_rel=sum_rel,
@@ -612,14 +619,14 @@ def phase_distributed(device) -> dict:
 
 
 def build_compare(trees) -> dict:
-    """Compile other trees' ingest.cu and overlap.cu (the same C entry
-    points) with this tree's flags, every tree at once -> {tree name:
-    {entry name: function}}."""
+    """Compile other trees' ingest.cu, quantile.cu and overlap.cu (the same
+    C entry points) with this tree's flags, every tree at once -> {tree
+    name: {entry name: function}}."""
     from concurrent.futures import ThreadPoolExecutor
 
     from sketches_tpu_torch import _build
 
-    sources = {"sk_ingest": "ingest.cu", "sk_overlap": "overlap.cu"}
+    sources = {"sk_ingest": "ingest.cu", "sk_quantile": "quantile.cu", "sk_overlap": "overlap.cu"}
     csrcs = {Path(t).name: Path(t).resolve() / "sketches_tpu_torch" / "csrc" for t in trees}
     require(len(csrcs) == len(trees), "--compare trees need distinct names")
     with ThreadPoolExecutor(len(csrcs)) as pool:
@@ -706,9 +713,9 @@ def time_query(device, facade, tier: str, rate: float, lookahead: int = 8,
     """One query kernel alone on a main path's final state, with the
     operands the wrapper builds prepared beforehand: ``windowed``,
     ``tiles``, ``overlap`` (ring depth from ``lookahead``, the wrapper's
-    default 8) or ``xla`` (``fused_quantile``).  ``others`` ({label:
-    sk_overlap of another build}) are timed beside the overlap kernel in
-    turns."""
+    default 8) or ``xla`` (``fused_quantile``, with its launch geometry).
+    ``others`` ({label: the same C entry of another build}) are timed
+    beside this tree's kernel in turns."""
     import torch
 
     from sketches_tpu_torch import kernels
@@ -787,14 +794,60 @@ def time_query(device, facade, tier: str, rate: float, lookahead: int = 8,
 
         bytes_moved = 4 * (2 * n * spec.n_bins + 3 * n + q + n * q)
         ops = 2 * n * spec.n_bins * (1 + q) + QUERY_DECODE_OPS * n * q
-        extra = {"with_neg": True}
+        extra = {"with_neg": True, "shape": [n, spec.n_bins, q],
+                 "geometry": quantile_geometry(mid, spec.n_bins)}
     run = launcher(kernels._entry(entry), *args)
     ms = event_ms(run, inner=KERNEL_INNER)
     plain_ms = event_ms(plain)
     if others:
-        extra["compare"] = compare_ms(
-            {"this": run, **{k: launcher(f, *args) for k, f in others.items()}})
+        turns = alternate_ms({"this": run, **{k: launcher(f, *args) for k, f in others.items()}})
+        extra["compare"] = {k: mean(v) for k, v in turns.items()}
+        extra["compare_turns_ms"] = turns
     return {"ms": ms, "plain_ms": plain_ms, **extra, **bound(bytes_moved, ops, rate)}
+
+
+def quantile_geometry(mapping_id: int, n_bins: int) -> dict:
+    """The launch geometry ``sk_quantile`` takes for this call (its
+    ``sk_quantile_shape`` report: rows a ring slot, consumer warps (one
+    slot each), threads and dynamic shared memory a CTA, CTAs an SM)."""
+    import ctypes
+
+    from sketches_tpu_torch import _build
+
+    fn = _build.library("quantile.cu").sk_quantile_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 7)()
+    err = fn(mapping_id, n_bins, vals)
+    require(err == 0, f"sk_quantile_shape failed with CUDA error {err}")
+    keys = ("rows_per_slot", "consumer_warps", "threads", "smem_bytes", "ctas_per_sm", "sms",
+            "wide")
+    return dict(zip(keys, list(vals)))
+
+
+def phase_wide_state(device, rate: float, others: dict) -> dict:
+    """``fused_quantile`` on a 2048-bin state: 262,144 streams, one
+    mixed-sign lognormal batch through the facade (4.3 GB of bins, as the
+    1M x 512 state), checked against its plain version and timed."""
+    import torch
+
+    from sketches_tpu_torch import BatchedDDSketch, kernels
+
+    n, n_bins = N_STREAMS // 4, N_BINS * 4
+    gen = torch.Generator(device=device).manual_seed(SEED + 2048)
+    sk = BatchedDDSketch(n_streams=n, relative_accuracy=ALPHA, n_bins=n_bins)
+    v = torch.empty((n, BATCH), device=device).log_normal_(0.0, 2.0, generator=gen)
+    v = torch.where(torch.rand(v.shape, device=device, generator=gen) < 0.4, -v, v)
+    sk.add(v)
+    del v
+    qs = torch.tensor(QS, dtype=torch.float32, device=device)
+    got = kernels.fused_quantile(sk.spec, sk.state, qs)
+    err = require_rel(got, kernels.fused_quantile_plain(sk.spec, sk.state, qs), 1e-6,
+                      "fused_quantile at 2048 bins")
+    require(bool(torch.isfinite(got).all()), "2048-bin answers are not finite")
+    out = time_query(device, sk, "xla", rate, others=others)
+    out["max_abs_err"] = err
+    return out
 
 
 def main(argv=None) -> int:
@@ -803,8 +856,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", type=Path, action="append", default=[], metavar="DIR",
                     help="another tree holding sketches_tpu_torch/csrc (e.g. a git archive of"
-                         " the parent commit): time its ingest and overlap kernels beside"
-                         " this tree's, in turns; may be repeated")
+                         " the parent commit): time its ingest, full-window and overlap"
+                         " kernels beside this tree's, in turns; may be repeated")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -827,6 +880,7 @@ def main(argv=None) -> int:
     trees = build_compare(opts.compare) if opts.compare else {}
     ingest_others = {k: t["sk_ingest"] for k, t in trees.items()}
     overlap_others = {k: t["sk_overlap"] for k, t in trees.items()}
+    quantile_others = {k: t["sk_quantile"] for k, t in trees.items()}
     errs = phase_kernels_vs_plain(device)
 
     pos = phase_main_path(device, "positive", 0.0, "windowed")
@@ -836,24 +890,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mixed = phase_main_path(device, "mixed_sign", 0.4, "tiles")
     t_tiles = time_query(device, mixed["facade"], "tiles", rate)
-    # lookahead 8 (the default: depth 8 on the 8-step mixed walk) and 4; the
-    # kernel caps its ring at 4 slots, so both run the same configuration.
     t_over_mixed = time_query(device, mixed["facade"], "overlap", rate, others=overlap_others)
-    t_over_mixed4 = time_query(device, mixed["facade"], "overlap", rate, lookahead=4,
-                               others=overlap_others)
-    t_full = time_query(device, mixed["facade"], "xla", rate)
+    t_full = time_query(device, mixed["facade"], "xla", rate, others=quantile_others)
     del mixed["facade"]
+    torch.cuda.empty_cache()
+    t_full_2048 = phase_wide_state(device, rate, quantile_others)
     torch.cuda.empty_cache()
     t_ingest = time_ingest(device, rate, ingest_others)
     emit("times", card=card["smi"], ingest=t_ingest, windowed=t_win, tiles=t_tiles,
-         overlap=t_over, overlap_mixed=t_over_mixed, overlap_mixed_lookahead4=t_over_mixed4,
-         fused_quantile=t_full,
+         overlap=t_over, overlap_mixed=t_over_mixed, fused_quantile=t_full,
+         fused_quantile_2048=t_full_2048,
          note=f"kernel alone at the main path's shapes, CUDA events, median of 11 runs of"
               f" {KERNEL_INNER} back-to-back launches after warm-up (ingest batches and"
               f" compare: the same, in turns a, b, ..., b, a, mean of the two medians);"
               f" plain versions median of"
               f" 11 single calls; bound = max(bytes/mem rate, f32 ops/67 TFLOP/s); overlap"
-              f" on the positive and the mixed final state, fused_quantile on the mixed one")
+              f" on the positive and the mixed final state, fused_quantile on the mixed one"
+              f" and on a 262,144 x 2048 mixed state")
     torch.cuda.reset_peak_memory_stats(device)
     dist = phase_distributed(device)
     torch.cuda.empty_cache()
@@ -886,10 +939,11 @@ def main(argv=None) -> int:
         for name, file, replaces, t in rows
     ]
     # K5 runs on both traffic mixes' default route: the row's numbers are
-    # the positive state's; the mixed state's (lookahead 8 and 4) ride beside.
+    # the positive state's; the mixed state's ride beside.
     table[4].update(ms_mixed=t_over_mixed["ms"], plain_ms_mixed=t_over_mixed["plain_ms"],
-                    bound_ms_mixed=t_over_mixed["bound_ms"],
-                    ms_mixed_lookahead4=t_over_mixed4["ms"])
+                    bound_ms_mixed=t_over_mixed["bound_ms"])
+    table[1].update(ms_2048=t_full_2048["ms"], bound_ms_2048=t_full_2048["bound_ms"],
+                    plain_ms_2048=t_full_2048["plain_ms"])
     table[0].update(ms_constant=t_ingest["constant"]["ms"],
                     ms_weighted=t_ingest["weighted"]["ms"])
     emit("done", seconds=time.perf_counter() - t_start)

@@ -58,10 +58,18 @@
 //     consumer waits on, so no bulk copy is in flight when the CTA exits.
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "mapping.cuh"
 #include "tile_decode.cuh"
 
 namespace {
+
+using sk::bulk_copy;
+using sk::mbar_arrive;
+using sk::mbar_arrive_tx;
+using sk::mbar_init;
+using sk::mbar_wait;
+using sk::smem_addr;
 
 constexpr int kConsumers = 4;                      // consumer warps
 constexpr int kRowsPerWarp = 4;
@@ -85,55 +93,6 @@ struct Args {
   int subs_per_block;  // ceil(bn / kRows)
   int n_subs;          // sub-blocks in all
 };
-
-// --- mbarrier and bulk-copy primitives (PTX, sm_90) ------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
-      : "memory");
-}
-
-// Arrive and expect `bytes` more of asynchronous copies in this phase.
-__device__ __forceinline__ void mbar_arrive_tx(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Global -> shared bulk copy of `bytes` (a multiple of 16, both ends
-// 16-byte aligned), completing as transaction bytes on `bar`.
-__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, unsigned bytes,
-                                          unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // --- the walk ---------------------------------------------------------------
 
@@ -337,7 +296,7 @@ __global__ void __launch_bounds__(kThreads) overlap_kernel(const Args a) {
       mbar_init(pk_full0 + 8 * d, 1);
       mbar_init(pk_empty0 + 8 * d, kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sk::mbar_init_fence();
   }
   __syncthreads();  // the only block-wide barrier: the mbarriers exist
   const int n_tiles = a.n_bins / sk::kTile;

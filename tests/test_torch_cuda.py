@@ -6,7 +6,8 @@ device and skips without one.  On a machine with a card (no JAX needed):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 The overlap kernel must also equal the tile kernel exactly (the same
-tiles, scans and decode).
+tiles, scans and decode), and a full-window launch a second one bit for
+bit.
 
 Tolerances: unit-weight ingest is bit-identical to the plain version (exact
 integer masses); weighted histograms and counters agree to rtol 1e-5 (f32
@@ -20,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from sketches_tpu_torch import batched, kernels
+from sketches_tpu_torch import batched, convert, kernels
 from sketches_tpu_torch.resilience import SketchValueError, SpecError
+from torch_edge_rows import EDGE_QS, edge_leaves
 
 MAPPINGS = (
     "logarithmic",
@@ -180,19 +182,72 @@ def test_tiles_kernel_vs_plain(dev, mixed, n_q):
     assert _rel_ok(got, batched.quantile(spec, st, qs), 1e-6)
 
 
-@pytest.mark.parametrize("mixed", [False, True])
-@pytest.mark.parametrize("n_bins", [512, 2048, 300])
-@pytest.mark.parametrize("n_q", [4, 40])
-def test_quantile_kernel_vs_plain(dev, mixed, n_bins, n_q):
-    spec = batched.SketchSpec(0.01, n_bins=n_bins)
-    st = _state(spec, 264, 5, dev, mixed)
-    qs = torch.linspace(-0.1, 1.1, n_q, device=dev)
+def _quantile_matches_plain(spec, st, qs):
+    """One full-window launch against the plain version (on the CPU) and
+    ``batched.quantile``, rtol 1e-6 with equal NaN positions; a second
+    launch equal bit for bit."""
     before = kernels.fused_quantile.launches
     got = kernels.fused_quantile(spec, st, qs)
     assert kernels.fused_quantile.launches == before + 1
     cpu = st.map(lambda t: t.cpu())
     assert _rel_ok(got, kernels.fused_quantile(spec, cpu, qs.cpu()), 1e-6)
     assert _rel_ok(got, batched.quantile(spec, st, qs), 1e-6)
+    again = kernels.fused_quantile(spec, st, qs)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("n_bins", [512, 2048, 300, 129])
+@pytest.mark.parametrize("n", [1, 5, 264, 40000])
+@pytest.mark.parametrize("n_q", [1, 4, 40])
+def test_quantile_kernel_vs_plain(dev, mixed, n_bins, n, n_q):
+    """Widths that are no multiple of 128 (300) or of 4 (129: four streams
+    a ring slot), fewer streams than one CTA's slots (1, 5: a ragged last
+    slot at 129 bins), and 40,000 streams (many ring slots a CTA)."""
+    spec = batched.SketchSpec(0.01, n_bins=n_bins)
+    st = _state(spec, n, 5, dev, mixed)
+    if n == 1:  # _state empties stream 0: keep the one stream live
+        st.count = st.bins_pos.sum(1) + st.bins_neg.sum(1) + st.zero_count
+    qs = torch.linspace(-0.1, 1.1, n_q, device=dev) if n_q > 1 else torch.tensor([0.5], device=dev)
+    _quantile_matches_plain(spec, st, qs)
+
+
+@pytest.mark.parametrize("n_bins", [512, 2048, 300, 129])
+@pytest.mark.parametrize("n_q", [4, len(EDGE_QS)])
+def test_quantile_kernel_edge_rows(dev, n_bins, n_q):
+    """Hand-built rows: empty, zero-only, one-sign streams, all mass in bin
+    0 or bin n_bins - 1, count 0 over mass, integer running sums up to
+    2**24 (the f32 exactness ceiling) and ranks landing on running sums."""
+    spec = batched.SketchSpec(0.01, n_bins=n_bins)
+    st = convert.state_from_numpy(spec, edge_leaves(n_bins, 263), device=dev)
+    _quantile_matches_plain(spec, st, torch.tensor(EDGE_QS[:n_q], device=dev))
+
+
+@pytest.mark.parametrize("n_bins", [15000, 4001])
+def test_quantile_kernel_wide_rows(dev, n_bins):
+    """Rows too wide for four consumer warps' ring slots in shared memory
+    (15,000 bins; 4,001 bins at four streams a slot) take the kernel's
+    device-memory path."""
+    spec = batched.SketchSpec(0.01, n_bins=n_bins)
+    _quantile_matches_plain(spec, _state(spec, 300, 12, dev, True),
+                            torch.tensor([0.0, 0.5, 0.99, 1.0, 1.1], device=dev))
+    st = convert.state_from_numpy(spec, edge_leaves(n_bins, 24), device=dev)
+    _quantile_matches_plain(spec, st, torch.tensor(EDGE_QS, device=dev))
+
+
+def test_quantile_kernel_rejects_misaligned_bins(dev):
+    """The ring's bulk copies need 16-byte aligned stores: a view that
+    starts 4 bytes in raises before any launch."""
+    spec = batched.SketchSpec(0.01, n_bins=512)
+    st = _state(spec, 64, 13, dev, True)
+    flat = torch.zeros(64 * 512 + 1, device=dev)
+    flat[1:] = st.bins_pos.reshape(-1)
+    st.bins_pos = flat[1:].view(64, 512)
+    assert st.bins_pos.is_contiguous() and st.bins_pos.data_ptr() % 16 == 4
+    before = kernels.fused_quantile.launches
+    with pytest.raises(SketchValueError):
+        kernels.fused_quantile(spec, st, [0.5])
+    assert kernels.fused_quantile.launches == before
 
 
 def _overlap_equals_tiles(spec, st, qs, everywhere=False, **kw):

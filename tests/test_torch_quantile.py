@@ -16,7 +16,9 @@ Tolerances, with their reasons:
   another order (JAX splits them into three bf16 terms), which can move a
   rank by one bucket only where it sits on a bucket edge to within that.
 
-JAX results are waited for before the port's side runs.
+JAX results are waited for before the port's side runs.  The hand-built
+edge rows (``tests/torch_edge_rows.py``) are the ones the card tests hold
+the CUDA kernel to.
 """
 
 import jax
@@ -30,6 +32,7 @@ from sketches_tpu import kernels as jk
 from sketches_tpu_torch import batched as tb
 from sketches_tpu_torch import convert
 from sketches_tpu_torch import kernels as tk
+from torch_edge_rows import EDGE_QS, edge_leaves, edge_names
 
 QS = [0.0, 0.1, 0.25, 0.5, 0.9, 0.99, 1.0, -0.1, 1.1]
 N = 256
@@ -105,3 +108,31 @@ def test_fused_quantile_edges():
     ints = tb.SketchSpec(n_bins=512, bin_dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         tk.fused_quantile(ints, tb.init(ints, 128, "cpu"), QS)
+
+
+@pytest.mark.parametrize("mapping", ["logarithmic", "linear_interpolated",
+                                     "quadratic_interpolated", "cubic_interpolated"])
+@pytest.mark.parametrize("n_q", [4, len(EDGE_QS)])
+def test_fused_quantile_edge_rows_match_jax_interpret(mapping, n_q):
+    """Hand-built rows (empty, zero-only, one-sign, all mass in the first or
+    last bin, count 0 over mass, integer sums near 2**24, ranks landing on
+    running sums) through JAX's Pallas kernel in interpret mode and the
+    port's plain version, on the same numpy leaves."""
+    leaves = edge_leaves(512, 128)  # the Pallas kernel takes blocks of 128 streams
+    js = jb.SketchSpec(n_bins=512, mapping_name=mapping)
+    ts = tb.SketchSpec(n_bins=512, mapping_name=mapping)
+    jst = jb.SketchState(**{f: jnp.asarray(leaves[f]) for f in tb.LEAVES})
+    tst = convert.state_from_numpy(ts, leaves, device="cpu")
+    qs = EDGE_QS[:n_q]
+    ref = np.asarray(jax.block_until_ready(
+        jk.fused_quantile(js, jst, jnp.asarray(qs, jnp.float32), interpret=True)
+    ))
+    got = tk.fused_quantile(ts, tst, qs).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, equal_nan=True)
+    np.testing.assert_allclose(got, tb.quantile(ts, tst, qs).numpy(), rtol=1e-6, equal_nan=True)
+    rows = {name: got[i] for i, name in enumerate(edge_names())}
+    valid = [0.0 <= q <= 1.0 for q in qs]
+    assert np.isnan(rows["empty"]).all() and np.isnan(rows["count_zero"]).all()
+    assert (rows["zero_only"][valid] == 0.0).all()
+    assert (rows["neg_only"][valid] < 0.0).all() and (rows["pos_only"][valid] > 0.0).all()
+    assert len(set(rows["pos_bin0"][valid])) == 1 and len(set(rows["neg_last"][valid])) == 1
