@@ -24,13 +24,32 @@ plain PyTorch version on the card, then drives three paths at full size:
 streams, one mixed-sign batch through the facade: the same bytes as the
 1M x 512 state).
 
-Each path resets the launch counters before it runs and reads them after.
+Three host-side phases follow the device paths:
+
+* ``host_tier``: ``DDSketch(backend="torch")`` on the card at the default
+  window (2048 bins), 4,194,304 lognormal(0, 2) values (40% negated)
+  through ``add_many`` and 100,000 through scalar ``add``, once on the
+  native-buffered tier and once with ``SKETCHES_TPU_NATIVE=0``; quantiles
+  against numpy's exact ones, the two tiers against each other, and a
+  pure-Python ``DDSketch`` merged in.  The native library must build.
+* ``wire``: the positive and mixed 1M x 512 final states through
+  ``pb.wire`` (encode, native decode, mass conservation, native against
+  pure-Python decode on 65,536 streams, against the host-sketch path on
+  4,096), and an exact round trip of a third 1M x 512 state on a pinned
+  window whose decoded facade answers as the original on both routes.
+* ``checkpoint``: that pinned facade saved and restored, the distributed
+  facade's partials saved and restored onto its mesh (the ``xla`` floor
+  answers as before), and a corrupted file refused.
+
+Each path (the wire and checkpoint phases too) resets the launch counters
+before it runs and reads them after.
 Answers are checked against the plain facade and against exact quantiles of
 sampled streams; each kernel is timed beside its plain version and its
 bound; one JSON line is printed per phase.  The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
 Without a CUDA device, or without the package beside it, it exits non-zero
-and prints no result.  Imports torch and numpy, never JAX.
+and prints no result.  Imports torch and numpy, never JAX, and needs no
+protobuf.
 
     python3 chip_smoke.py --compare build/cmp/parent [--compare DIR ...]
 
@@ -39,6 +58,12 @@ also builds the ingest, full-window and overlap kernels of other trees
 commit, or a patched copy, unpacked under the gitignored ``build/``) and
 times them beside this tree's, in turns on the same card; the results ride
 in the ``times`` line under ``compare``, labelled by DIR's name.
+
+    python3 chip_smoke.py --checkpoint-writers
+
+also times the port's checkpoint writer (zlib level 1) against
+``np.savez_compressed`` (level 6) on the pinned state's host arrays, in
+turns; the ``checkpoint`` line carries them under ``writers``.
 """
 
 from __future__ import annotations
@@ -50,6 +75,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 N_STREAMS = 1 << 20
 N_BINS = 512
@@ -60,6 +87,19 @@ QS = (0.5, 0.9, 0.99, 0.999)
 CHECK_QS = (0.5, 0.9, 0.99)
 N_SAMPLED = 4096
 SEED = 20261016
+# The host-tier phase: values through add_many, then through scalar add,
+# then in the pure-Python sketch merged in.
+HOST_VALUES = 1 << 22
+HOST_SCALAR = 100_000
+HOST_MERGED = 200_000
+# The wire phase: streams decoded by both drivers, and checked against the
+# host-sketch path.
+WIRE_DRIVER_SLICE = 65536
+WIRE_HOST_SAMPLE = 4096
+# Leaves the wire format carries: sum, min, max and the collapse counters
+# are not on it.
+WIRE_LEAVES = ("bins_pos", "bins_neg", "zero_count", "count", "key_offset", "pos_lo",
+               "pos_hi", "neg_lo", "neg_hi", "neg_total", "tile_sums")
 
 # Peak rates of the card for the bounds (NVIDIA data sheets): device-memory
 # bytes/s by part, and f32 operations/s outside the tensor cores.
@@ -260,17 +300,25 @@ def phase_card() -> dict:
 
 
 def phase_build() -> None:
-    from sketches_tpu_torch import _build
+    """The five kernels (nvcc, in parallel), then the native host library
+    (g++); the host tier must come up native."""
+    from sketches_tpu_torch import _build, native
 
     t0 = time.perf_counter()
     per_source = _build.build()
+    t1 = time.perf_counter()
+    native_status = native.status()
+    native_s = time.perf_counter() - t1
     total = time.perf_counter() - t0
+    require(native_status["tier"] == "native" and native_status["wire"] == "native",
+            f"the native host library did not build or load: {native_status['reason']}")
     resources = {
         src: [ln.strip() for ln in _build.build_log(src).splitlines()
               if "registers" in ln or "spill" in ln]
         for src in _build.SOURCES
     }
-    emit("build", seconds=total, per_source=per_source, ptxas=resources)
+    emit("build", seconds=total, per_source=per_source, ptxas=resources,
+         native=native_status, native_seconds=native_s)
 
 
 def _edge_values(gen, n, s, device):
@@ -615,6 +663,8 @@ def phase_distributed(device) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
     }
     emit("distributed", **out)
+    out["facade"] = dist
+    del ref
     return out
 
 
@@ -850,6 +900,397 @@ def phase_wide_state(device, rate: float, others: dict) -> dict:
     return out
 
 
+def _quantile_ok(est, exact) -> bool:
+    """|est - exact| <= alpha * |exact| plus one f32 ulp."""
+    slack = (ALPHA + float(np.finfo(np.float32).eps)) * abs(exact)
+    return abs(est - exact) <= slack
+
+
+def phase_host_tier(device) -> dict:
+    """``DDSketch(backend="torch")`` on the card at the default window (2048
+    bins, alpha 0.01), on the native-buffered tier and on the device-flush
+    tier (``SKETCHES_TPU_NATIVE=0``: each 16,384-value chunk goes to the
+    card): ``add_many`` then scalar ``add``, quantiles against numpy's
+    exact lower ones, the tiers against each other, then a pure-Python
+    ``DDSketch`` merged into the native-tier sketch."""
+    import os
+
+    import torch
+
+    from sketches_tpu_torch import DDSketch, native
+
+    r = np.random.RandomState(SEED + 5)
+    n_all = HOST_VALUES + HOST_SCALAR
+    values = r.lognormal(0.0, 2.0, n_all) * np.where(r.rand(n_all) < 0.4, -1.0, 1.0)
+    bulk, scalar = values[:HOST_VALUES], values[HOST_VALUES:].tolist()
+    exact = np.quantile(values, QS, method="lower")
+    out, sketches = {}, {}
+    for tier in ("native", "device"):
+        if tier == "device":
+            os.environ[native.NATIVE_ENV] = "0"
+        native.reset()
+        try:
+            status = native.status()
+            if tier == "native":
+                require(status["tier"] == "native",
+                        f"the native library did not build or load: {status['reason']}")
+            sk = DDSketch(ALPHA, backend="torch", device=device)
+            require(sk.flush_tier == tier, f"flush tier {sk.flush_tier}, expected {tier}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sk.add_many(bulk)
+            torch.cuda.synchronize()
+            t_many = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for x in scalar:
+                sk.add(x)
+            require(sk.count == n_all, "count after the scalar adds")  # flushes
+            torch.cuda.synchronize()
+            t_scalar = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sk._settle()
+            torch.cuda.synchronize()
+            t_settle = time.perf_counter() - t0
+            got = [sk.get_quantile_value(q) for q in QS]
+        finally:
+            os.environ.pop(native.NATIVE_ENV, None)
+            native.reset()
+        bad = [q for q, g, e in zip(QS, got, exact) if not _quantile_ok(g, e)]
+        require(not bad, f"{tier} tier: quantiles {bad} outside alpha of the exact ones")
+        require(sk.device == sk._state.device == device, "the sketch is not on the card")
+        sketches[tier] = sk
+        out[tier] = {
+            "status": status, "add_many_s": t_many, "add_many_values_per_s": HOST_VALUES / t_many,
+            "scalar_add_s": t_scalar, "scalar_values_per_s": HOST_SCALAR / t_scalar,
+            "settle_s": t_settle, "quantiles": got,
+            "max_rel_err_vs_exact": max(abs(g - e) / abs(e) for g, e in zip(got, exact)),
+            "key_offset": int(sk._state.key_offset[0]),
+        }
+    a, b = sketches["native"], sketches["device"]
+    for f in ("count", "sum", "zero_count"):
+        require(getattr(a, f) == getattr(b, f), f"the tiers' {f} differ")
+    require((a._min, a._max) == (b._min, b._max), "the tiers' min/max differ")
+    # The native tier keys with the f64 scalar path, the device tier with
+    # the f32 array path: a value at a bucket edge may land one bucket
+    # apart, so the answers agree within one bucket (a factor gamma).
+    gamma = (1 + ALPHA) / (1 - ALPHA)
+    diff = max(abs(x - y) / abs(y) for x, y in zip(out["native"]["quantiles"],
+                                                    out["device"]["quantiles"]))
+    require(diff <= gamma - 1 + 1e-6, f"the tiers' quantiles differ by {diff}")
+    out["tiers_max_rel_diff"] = diff
+    out["tiers_equal_quantiles"] = sum(
+        x == y for x, y in zip(out["native"]["quantiles"], out["device"]["quantiles"]))
+
+    # A pure-Python sketch merged into the native-tier sketch.
+    from sketches_tpu_torch import DDSketch as PySketch
+
+    extra = r.lognormal(0.0, 2.0, HOST_MERGED) * np.where(r.rand(HOST_MERGED) < 0.4, -1.0, 1.0)
+    py = PySketch(ALPHA)
+    for x in extra.tolist():
+        py.add(x)
+    count0, sum0 = a.count, a.sum
+    t0 = time.perf_counter()
+    a.merge(py)
+    torch.cuda.synchronize()
+    t_merge = time.perf_counter() - t0
+    require(a.count == count0 + py.count == n_all + HOST_MERGED, "merged count")
+    require(a.sum == sum0 + py.sum, "merged sum")
+    union = np.quantile(np.concatenate([values, extra]), QS, method="lower")
+    merged = [a.get_quantile_value(q) for q in QS]
+    bad = [q for q, g, e in zip(QS, merged, union) if not _quantile_ok(g, e)]
+    require(not bad, f"merged quantiles {bad} outside alpha")
+    out["merge"] = {"values": HOST_MERGED, "s": t_merge, "quantiles": merged,
+                    "max_rel_err_vs_exact": max(abs(g - e) / abs(e)
+                                                for g, e in zip(merged, union))}
+    out["exact"] = exact.tolist()
+    emit("host_tier", values=n_all, **out)
+    return out
+
+
+def _leaves_equal(a, b, leaves) -> list:
+    """The leaves of ``leaves`` on which two states differ."""
+    import torch
+
+    return [f for f in leaves if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def _mass(st):
+    return st.bins_pos.double().sum(-1) + st.bins_neg.double().sum(-1) + st.zero_count.double()
+
+
+def _copy_times(device, st, leaves) -> tuple:
+    """Seconds of one device-to-host copy of ``leaves`` and of the
+    host-to-device copy back (pageable host memory, as the codec's)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [getattr(st, f).cpu() for f in leaves]
+    d2h = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = [h.to(device) for h in host]
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t0
+    del host, back
+    return d2h, h2d
+
+
+def _same_answers(a, b) -> bool:
+    import torch
+
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        a.nan_to_num(), b.nan_to_num())
+
+
+def phase_wire(device, facades: dict) -> dict:
+    """``pb.wire`` on the main paths' final 1M x 512 states, then an exact
+    round trip of a third 1M x 512 state built on a pinned window."""
+    import os
+
+    import torch
+
+    from sketches_tpu_torch import BatchedDDSketch, batched, kernels, native
+    from sketches_tpu_torch.pb import wire
+
+    require(native.status()["wire"] == "native",
+            f"the native wire scanner is not loaded: {native.status()['reason']}")
+    out = {}
+    kernels.reset_launch_counts()
+    for name, sk in facades.items():
+        spec, st = sk.spec, sk.state
+        d2h, _ = _copy_times(device, st, ("bins_pos", "bins_neg", "zero_count", "key_offset"))
+        t0 = time.perf_counter()
+        blobs = wire.state_to_bytes(spec, st)
+        t_enc = time.perf_counter() - t0
+        n_bytes = sum(map(len, blobs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = wire.bytes_to_state(spec, blobs, device=device)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        _, h2d = _copy_times(device, back, batched.LEAVES)
+        # Streams are centred on their own windows and decode onto the
+        # spec's: edge mass may fold into the edge bins, never vanish.
+        require(torch.equal(_mass(back), _mass(st)), f"{name}: decode lost mass")
+        require(torch.equal(back.count, st.count), f"{name}: decoded counts differ")
+        row = {
+            "blobs": len(blobs), "bytes": n_bytes, "encode_s": t_enc, "decode_s": t_dec,
+            "encode_MBps": n_bytes / t_enc / 1e6, "decode_MBps": n_bytes / t_dec / 1e6,
+            "d2h_s": d2h, "d2h_share_of_encode": d2h / t_enc,
+            "h2d_s": h2d, "h2d_share_of_decode": h2d / t_dec,
+            "collapsed_on_decode": float((back.collapsed_low + back.collapsed_high).sum()),
+        }
+        if name == "mixed_sign":
+            part = blobs[:WIRE_DRIVER_SLICE]
+            t0 = time.perf_counter()
+            nat = wire.bytes_to_state(spec, part, device=device)
+            torch.cuda.synchronize()
+            t_nat = time.perf_counter() - t0
+            os.environ[native.NATIVE_ENV] = "0"  # the pure-Python walker
+            native.reset()
+            try:
+                require(native.wire_scanner() is None, "the kill switch left the scanner on")
+                t0 = time.perf_counter()
+                py = wire.bytes_to_state(spec, part, device=device)
+                torch.cuda.synchronize()
+                t_py = time.perf_counter() - t0
+            finally:
+                os.environ.pop(native.NATIVE_ENV, None)
+                native.reset()
+            diff = _leaves_equal(nat, py, batched.LEAVES)
+            require(not diff, f"native and Python decodes differ on {diff}")
+            idx = np.sort(np.random.RandomState(SEED + 9).choice(
+                st.n_streams, WIRE_HOST_SAMPLE, replace=False))
+            sel = torch.from_numpy(idx).to(device)
+            sub = st.map(lambda x: x[sel])
+            via_host = batched.from_host_sketches(
+                spec, batched.to_host_sketches(spec, sub), device)
+            via_wire = wire.bytes_to_state(spec, [blobs[i] for i in idx.tolist()], device=device)
+            diff = _leaves_equal(via_host, via_wire, WIRE_LEAVES)
+            require(not diff, f"decode differs from the host-sketch path on {diff}")
+            # The host sketches carry the source's collapse counters; the
+            # wire does not.
+            for f in ("collapsed_low", "collapsed_high"):
+                require(torch.equal(getattr(via_host, f), getattr(via_wire, f) + getattr(sub, f)),
+                        f"{f} differs from the host-sketch path")
+            row.update(driver_slice=WIRE_DRIVER_SLICE, driver_native_s=t_nat,
+                       driver_python_s=t_py, host_sketch_sample=WIRE_HOST_SAMPLE)
+        out[name] = row
+        del blobs, back
+    torch.cuda.empty_cache()
+
+    # A third state on one pinned window: an exact round trip.
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    pinned = BatchedDDSketch(n_streams=N_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS,
+                             key_offset=-(N_BINS // 2), device=device)
+    for _ in range(N_BATCHES):
+        pinned.add(torch.empty((N_STREAMS, BATCH), device=device).log_normal_(
+            0.0, 2.0, generator=gen))
+    spec, st = pinned.spec, pinned.state
+    t0 = time.perf_counter()
+    blobs = wire.state_to_bytes(spec, st)
+    t_enc = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = wire.bytes_to_state(spec, blobs, device=device)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    again = wire.state_to_bytes(spec, back)
+    require(again == blobs, "encode -> decode -> encode changed the bytes")
+    n_bytes = sum(map(len, blobs))
+    del again, blobs
+    diff = _leaves_equal(back, st, WIRE_LEAVES)
+    require(not diff, f"the pinned round trip changed {diff}")
+    dec = BatchedDDSketch(N_STREAMS, spec=spec, state=back, device=device)
+    tier_a, a = pinned.get_quantile_values_resolved(QS)
+    tier_b, b = dec.get_quantile_values_resolved(QS)
+    require(tier_a == tier_b == "overlap", f"pinned default routes {tier_a}, {tier_b}")
+    require(_same_answers(a, b), "the decoded facade answers differently (default route)")
+    tier_a, a = pinned.get_quantile_values_resolved(QS, disabled_tiers=("overlap",))
+    tier_b, b = dec.get_quantile_values_resolved(QS, disabled_tiers=("overlap",))
+    require(tier_a == tier_b and tier_a in ("windowed", "tiles"),
+            f"pinned ladder routes {tier_a}, {tier_b}")
+    require(_same_answers(a, b), f"the decoded facade answers differently ({tier_a})")
+    require(bool(torch.isfinite(a).all()), "pinned answers are not finite")
+    out["pinned"] = {"blobs": N_STREAMS, "bytes": n_bytes, "encode_s": t_enc, "decode_s": t_dec,
+                     "encode_MBps": n_bytes / t_enc / 1e6, "decode_MBps": n_bytes / t_dec / 1e6,
+                     "ladder_tier": tier_a, "key_offset": spec.key_offset}
+    del back, dec
+    out["launches"] = kernels.launch_counts()
+    emit("wire", **out)
+    out["pinned_facade"] = pinned
+    return out
+
+
+def _flip_inside(path: Path) -> None:
+    """Flip one bit in the middle of the largest member's compressed bytes."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        info = max(z.infolist(), key=lambda i: i.compress_size)
+    with open(path, "r+b") as f:
+        f.seek(info.header_offset + 26)
+        name_len, extra_len = np.frombuffer(f.read(4), "<u2")
+        pos = info.header_offset + 30 + int(name_len) + int(extra_len) + info.compress_size // 2
+        f.seek(pos)
+        byte = f.read(1)[0]
+        f.seek(pos)
+        f.write(bytes([byte ^ 0x10]))
+
+
+def _time_writers(pinned) -> list:
+    """Seconds and bytes of the port's npz writer (``checkpoint._npz_bytes``,
+    zlib level 1) and of ``np.savez_compressed`` (level 6, the JAX
+    package's writer) on the same host arrays of ``pinned``, in memory, in
+    turns a, b, a."""
+    import io
+
+    import numpy as np
+
+    from sketches_tpu_torch import checkpoint
+
+    arrays = checkpoint._state_arrays(pinned.spec, pinned.state)
+
+    def numpy_writer():
+        buf = io.BytesIO()
+        np.savez_compressed(buf, **arrays)
+        return buf.getbuffer().nbytes
+
+    turns = []
+    for name, write in (("port_level1", lambda: len(checkpoint._npz_bytes(arrays))),
+                        ("savez_compressed_level6", numpy_writer),
+                        ("port_level1", lambda: len(checkpoint._npz_bytes(arrays)))):
+        t0 = time.perf_counter()
+        n = write()
+        turns.append({"writer": name, "s": time.perf_counter() - t0, "bytes": n})
+    return turns
+
+
+def phase_checkpoint(device, pinned, dist, writers=False) -> dict:
+    """``checkpoint`` on the pinned 1M x 512 facade and on the two-shard
+    distributed facade's partials, through a directory under ``build/``;
+    with ``writers``, also the two npz writers timed on the pinned state."""
+    import tempfile
+
+    import torch
+
+    from sketches_tpu_torch import batched, checkpoint, kernels
+    from sketches_tpu_torch.parallel import SketchMesh
+    from sketches_tpu_torch.resilience import CheckpointCorrupt
+
+    out = {}
+    kernels.reset_launch_counts()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = Path(tmp) / "pinned.npz"
+        d2h, h2d = _copy_times(device, pinned.state, batched.LEAVES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(str(path), pinned)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.restore(str(path), device=device)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        require(back.device == device and back.engine == pinned.engine == "kernel",
+                "restored off the card or off the kernel path")
+        diff = _leaves_equal(back.state, pinned.state, batched.LEAVES)
+        require(not diff, f"the restored state differs on {diff}")
+        tier_a, a = pinned.get_quantile_values_resolved(QS)
+        tier_b, b = back.get_quantile_values_resolved(QS)
+        require(tier_a == tier_b == "overlap" and _same_answers(a, b),
+                "the restored facade answers differently")
+        out["pinned"] = {"save_s": t_save, "restore_s": t_restore,
+                         "file_bytes": path.stat().st_size, "d2h_s": d2h,
+                         "d2h_share_of_save": d2h / t_save, "h2d_s": h2d,
+                         "h2d_share_of_restore": h2d / t_restore}
+        del back
+        path.unlink()
+        if writers:
+            out["writers"] = _time_writers(pinned)
+
+        floor = ("windowed", "wxla")
+        tier, before = dist.get_quantile_values_resolved(QS, disabled_tiers=floor)
+        require(tier == "xla", f"distributed floor resolved {tier}")
+        dpath = Path(tmp) / "partials.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(str(dpath), dist, partials=True)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = checkpoint.restore_distributed(str(dpath), mesh=SketchMesh(devices=[device, device]))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        ref = dist.merged_state()
+        diff = _leaves_equal(again.merged_state(), ref, batched.LEAVES)
+        require(not diff, f"the restored fold differs on {diff}")
+        tier, after = again.get_quantile_values_resolved(QS, disabled_tiers=floor)
+        require(tier == "xla" and _same_answers(after, before),
+                "the restored distributed facade answers differently on the xla floor")
+        out["partials"] = {"save_s": t_save, "restore_s": t_restore,
+                           "file_bytes": dpath.stat().st_size,
+                           "shards": int(dist.n_value_shards)}
+        del again
+        dpath.unlink()
+
+        # One flipped bit inside a member's compressed bytes is refused.
+        small = Path(tmp) / "small.npz"
+        sub = batched.BatchedDDSketch(
+            WIRE_HOST_SAMPLE, spec=pinned.spec, device=device,
+            state=pinned.state.map(lambda x: x[:WIRE_HOST_SAMPLE].clone()))
+        checkpoint.save(str(small), sub)
+        _flip_inside(small)
+        try:
+            checkpoint.restore(str(small), device=device)
+        except CheckpointCorrupt as e:
+            out["corrupt_refused"] = str(e)[:200]
+        else:
+            raise SmokeFailure("a checkpoint with a flipped bit restored")
+    out["launches"] = kernels.launch_counts()
+    emit("checkpoint", **out)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -858,6 +1299,9 @@ def main(argv=None) -> int:
                     help="another tree holding sketches_tpu_torch/csrc (e.g. a git archive of"
                          " the parent commit): time its ingest, full-window and overlap"
                          " kernels beside this tree's, in turns; may be repeated")
+    ap.add_argument("--checkpoint-writers", action="store_true",
+                    help="also time the port's npz writer (zlib level 1) against"
+                         " np.savez_compressed (level 6) on the pinned 1M x 512 state")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -882,17 +1326,17 @@ def main(argv=None) -> int:
     overlap_others = {k: t["sk_overlap"] for k, t in trees.items()}
     quantile_others = {k: t["sk_quantile"] for k, t in trees.items()}
     errs = phase_kernels_vs_plain(device)
+    phase_host_tier(device)
 
     pos = phase_main_path(device, "positive", 0.0, "windowed")
     t_win = time_query(device, pos["facade"], "windowed", rate)
     t_over = time_query(device, pos["facade"], "overlap", rate, others=overlap_others)
-    del pos["facade"]
-    torch.cuda.empty_cache()
     mixed = phase_main_path(device, "mixed_sign", 0.4, "tiles")
     t_tiles = time_query(device, mixed["facade"], "tiles", rate)
     t_over_mixed = time_query(device, mixed["facade"], "overlap", rate, others=overlap_others)
     t_full = time_query(device, mixed["facade"], "xla", rate, others=quantile_others)
-    del mixed["facade"]
+    wire = phase_wire(device, {"positive": pos.pop("facade"), "mixed_sign": mixed.pop("facade")})
+    pinned = wire.pop("pinned_facade")
     torch.cuda.empty_cache()
     t_full_2048 = phase_wide_state(device, rate, quantile_others)
     torch.cuda.empty_cache()
@@ -909,10 +1353,12 @@ def main(argv=None) -> int:
               f" and on a 262,144 x 2048 mixed state")
     torch.cuda.reset_peak_memory_stats(device)
     dist = phase_distributed(device)
+    ckpt = phase_checkpoint(device, pinned, dist.pop("facade"), opts.checkpoint_writers)
+    del pinned
     torch.cuda.empty_cache()
 
     def launched(name):
-        return sum(path["launches"][name] for path in (pos, mixed, dist))
+        return sum(path["launches"][name] for path in (pos, mixed, dist, wire, ckpt))
 
     src = "sketches_tpu_torch/csrc/"
     rows = [

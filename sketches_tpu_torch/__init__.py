@@ -7,12 +7,26 @@ kernels replaced by hand-written CUDA kernels (``csrc/``) that are built
 with ``nvcc`` at first use.  Entry points run on the card unless the caller
 passes ``device="cpu"``, where every kernel runs its plain PyTorch version.
 
+The host tier comes with it: the reference-shaped ``DDSketch`` presets
+(``backend="torch"`` puts one on the device tier), the native C++ engine
+(``native``, built with ``g++`` at first use), the protobuf wire format
+(``pb``) and dense checkpoints (``checkpoint``), each byte- and
+bit-compatible with the JAX package's.
+
 This package imports torch and numpy only; it never imports JAX or the
-``sketches_tpu`` package.
+``sketches_tpu`` package, and protobuf only on the wire paths that need
+message objects.
 """
 
-from sketches_tpu_torch import convert, kernels, parallel
+from sketches_tpu_torch import checkpoint, convert, kernels, native, parallel, pb
 from sketches_tpu_torch.batched import BatchedDDSketch, SketchSpec, SketchState
+from sketches_tpu_torch.ddsketch import (
+    BaseDDSketch,
+    DDSketch,
+    LogCollapsingHighestDenseDDSketch,
+    LogCollapsingLowestDenseDDSketch,
+    TorchDDSketch,
+)
 from sketches_tpu_torch.mapping import (
     CubicallyInterpolatedMapping,
     KeyMapping,
@@ -23,15 +37,24 @@ from sketches_tpu_torch.mapping import (
 )
 from sketches_tpu_torch.parallel import DistributedDDSketch, SketchMesh
 from sketches_tpu_torch.resilience import (
+    BlobTooLarge,
+    CheckpointCorrupt,
     EngineUnavailable,
+    QuarantineReport,
     ShardLossError,
     SketchError,
     SketchValueError,
     SpecError,
     UnequalSketchParametersError,
+    WireDecodeError,
 )
 
 __all__ = [
+    "BaseDDSketch",
+    "DDSketch",
+    "TorchDDSketch",
+    "LogCollapsingLowestDenseDDSketch",
+    "LogCollapsingHighestDenseDDSketch",
     "BatchedDDSketch",
     "DistributedDDSketch",
     "SketchMesh",
@@ -49,7 +72,14 @@ __all__ = [
     "UnequalSketchParametersError",
     "EngineUnavailable",
     "ShardLossError",
+    "WireDecodeError",
+    "BlobTooLarge",
+    "CheckpointCorrupt",
+    "QuarantineReport",
+    "checkpoint",
     "convert",
     "kernels",
+    "native",
     "parallel",
+    "pb",
 ]

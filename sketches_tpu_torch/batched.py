@@ -53,6 +53,11 @@ __all__ = [
     "data_center_offsets",
     "overflow_risk",
     "tile_sums_of",
+    "tile_sums_np",
+    "occupied_bounds_np",
+    "to_host_sketches",
+    "from_host_sketches",
+    "arrays_to_state",
     "BatchedDDSketch",
 ]
 
@@ -268,6 +273,39 @@ def tile_sums_of(bins_pos: torch.Tensor, bins_neg: torch.Tensor) -> torch.Tensor
         return x.reshape(n, t, TILE).sum(-1, dtype=x.dtype)
 
     return torch.cat([tiles(bins_pos), tiles(bins_neg)], dim=1)
+
+
+def tile_sums_np(bins_pos: np.ndarray, bins_neg: np.ndarray) -> np.ndarray:
+    """Host (numpy) twin of :func:`tile_sums_of` for interop and restore
+    paths."""
+    n, b = bins_pos.shape
+    t = -(-b // TILE)
+    pad = t * TILE - b
+
+    def tiles(x):
+        if pad:
+            x = np.pad(x, ((0, 0), (0, pad)))
+        return x.reshape(n, t, TILE).sum(-1)
+
+    return np.concatenate([tiles(bins_pos), tiles(bins_neg)], axis=1)
+
+
+def occupied_bounds_np(bins: np.ndarray):
+    """Host (numpy) twin of :func:`_occupied_bounds`, any batch shape.
+
+    The one implementation of the ``(n_bins, -1)`` sentinel contract for
+    host interop paths (checkpoint restore, host-sketch packing, native
+    lift, wire decode); the windowed and tile queries clip on these
+    sentinels, so every producer must agree on them.
+    """
+    n_bins = bins.shape[-1]
+    occ = bins > 0
+    any_ = occ.any(axis=-1)
+    # argmax on bool = first/last True: fewer and smaller temporaries than
+    # a where(iota) min/max.
+    lo = np.where(any_, occ.argmax(axis=-1), n_bins).astype(np.int32)
+    hi = np.where(any_, n_bins - 1 - occ[..., ::-1].argmax(axis=-1), -1).astype(np.int32)
+    return lo, hi
 
 
 def _occupied_bounds(bins: torch.Tensor):
@@ -1063,6 +1101,186 @@ class BatchedDDSketch:
             f" relative_accuracy={self.spec.relative_accuracy},"
             f" mapping={self.spec.mapping_name!r}, device={self.device})"
         )
+
+
+# ---------------------------------------------------------------------------
+# Host interop
+# ---------------------------------------------------------------------------
+
+
+def to_host_sketches(spec: SketchSpec, state: SketchState):
+    """Each stream as a host-tier sketch (for serde and interop).
+
+    Returns a list of ``ddsketch.BaseDDSketch`` with the spec's mapping and
+    collapsing-lowest stores holding the same bin masses at the same keys;
+    the device-only collapse counters ride along as ``_collapsed_low`` /
+    ``_collapsed_high`` so :func:`from_host_sketches` can round-trip them.
+    Stores are built directly from numpy row slices of the occupied span:
+    the state organic ``store.add`` growth would reach.
+    """
+    from sketches_tpu_torch.ddsketch import BaseDDSketch
+    from sketches_tpu_torch.store import CollapsingLowestDenseStore
+
+    (bins_pos, bins_neg, zero_count, count, total, vmin, vmax, clow, chigh, koff) = (
+        getattr(state, f).cpu().numpy()
+        for f in ("bins_pos", "bins_neg", "zero_count", "count", "sum", "min", "max",
+                  "collapsed_low", "collapsed_high", "key_offset")
+    )
+    bins_pos = bins_pos.astype(np.float64)
+    bins_neg = bins_neg.astype(np.float64)
+    plo, phi = occupied_bounds_np(bins_pos)
+    nlo, nhi = occupied_bounds_np(bins_neg)
+    # Per-store masses from the bins (the counters may differ from them in
+    # f32 rounding; the stores carry the bins' truth).
+    pos_count = bins_pos.sum(axis=-1)
+    neg_count = bins_neg.sum(axis=-1)
+    mapping = mapping_from_name(spec.mapping_name, spec.relative_accuracy)
+
+    def load_store(store, row, lo, hi, mass, off):
+        if hi < 0:  # empty store
+            return
+        lo_k, hi_k = int(lo + off), int(hi + off)
+        length = store._get_new_length(lo_k, hi_k)
+        seg = np.zeros(length, np.float64)
+        seg[: hi - lo + 1] = row[lo : hi + 1]
+        store.bins = seg.tolist()
+        store.offset = lo_k
+        store.min_key = lo_k
+        store.max_key = hi_k
+        store.count = float(mass)
+
+    sketches = []
+    for i in range(state.n_streams):
+        sk = BaseDDSketch(
+            mapping=mapping,
+            store=CollapsingLowestDenseStore(spec.n_bins),
+            negative_store=CollapsingLowestDenseStore(spec.n_bins),
+        )
+        off = int(koff[i])
+        load_store(sk.store, bins_pos[i], plo[i], phi[i], pos_count[i], off)
+        load_store(sk.negative_store, bins_neg[i], nlo[i], nhi[i], neg_count[i], off)
+        sk._zero_count = float(zero_count[i])
+        sk._count = float(count[i])
+        sk._sum = float(total[i])
+        sk._min = float(vmin[i])
+        sk._max = float(vmax[i])
+        sk._collapsed_low = float(clow[i])
+        sk._collapsed_high = float(chigh[i])
+        sketches.append(sk)
+    return sketches
+
+
+def from_host_sketches(spec: SketchSpec, sketches, device=None) -> SketchState:
+    """Pack host-tier sketches into one batched state on ``device`` (the
+    card by default), on the spec's default window.
+
+    Keys outside the window clamp to the edge bins (mass conserved, the
+    collapse counters record it), mirroring ingest-side collapse.  A
+    sketch whose mapping differs from the spec's raises
+    ``UnequalSketchParametersError``.
+    """
+    n = len(sketches)
+    # f64 staging: host masses are exact Python floats, and an f32
+    # intermediate would round counts past 2**24 before the final cast.
+    bins_pos = np.zeros((n, spec.n_bins), dtype=np.float64)
+    bins_neg = np.zeros((n, spec.n_bins), dtype=np.float64)
+    zero = np.zeros((n,), dtype=np.float64)
+    count = np.zeros((n,), dtype=np.float64)
+    total = np.zeros((n,), dtype=np.float64)
+    vmin = np.full((n,), np.inf, dtype=np.float64)
+    vmax = np.full((n,), -np.inf, dtype=np.float64)
+    clow = np.zeros((n,), dtype=np.float64)
+    chigh = np.zeros((n,), dtype=np.float64)
+    for i, sk in enumerate(sketches):
+        # Same gamma is not enough: the mappings share gamma at equal alpha
+        # but key differently, so only identical mappings are compatible.
+        if sk.mapping != spec.mapping:
+            raise UnequalSketchParametersError(
+                f"Host sketch mapping {sk.mapping!r} does not match batched"
+                f" spec mapping {spec.mapping!r}"
+            )
+        for arr, store in ((bins_pos, sk.store), (bins_neg, sk.negative_store)):
+            # The store's dense run lands as one slice; out-of-window mass
+            # folds into the edge bins.
+            row = np.asarray(store.bins, np.float64)
+            if row.size == 0:
+                continue
+            j = np.arange(row.size) + (store.offset - spec.key_offset)
+            low = j < 0
+            high = j >= spec.n_bins
+            mid = ~(low | high)
+            low_mass = float(row[low].sum())
+            high_mass = float(row[high].sum())
+            arr[i, 0] += low_mass
+            clow[i] += low_mass
+            arr[i, -1] += high_mass
+            chigh[i] += high_mass
+            arr[i, j[mid]] += row[mid]  # consecutive (unique) indices
+        zero[i] = sk.zero_count
+        count[i] = sk.count
+        total[i] = sk.sum
+        vmin[i] = sk._min
+        vmax[i] = sk._max
+        # Round-trip the device-only collapse counters when present.
+        clow[i] += getattr(sk, "_collapsed_low", 0.0)
+        chigh[i] += getattr(sk, "_collapsed_high", 0.0)
+    return arrays_to_state(
+        spec, bins_pos, bins_neg, zero, count, total, vmin, vmax, clow, chigh, device=device
+    )
+
+
+def arrays_to_state(
+    spec: SketchSpec,
+    bins_pos: np.ndarray,
+    bins_neg: np.ndarray,
+    zero: np.ndarray,
+    count: np.ndarray,
+    total: np.ndarray,
+    vmin: np.ndarray,
+    vmax: np.ndarray,
+    clow: np.ndarray,
+    chigh: np.ndarray,
+    device=None,
+) -> SketchState:
+    """Pack host (f64) interop arrays into a state on ``device`` (the card
+    by default, ``SpecError`` without one), on the spec's default window:
+    the shared tail of every host-to-device lift (:func:`from_host_sketches`,
+    ``pb.wire``'s bulk decode).  The derived counters (occupied bounds,
+    neg_total, tile sums) are recomputed from the bins, and masses cast to
+    the spec's bin dtype (rounded for integer bins: fractional host weights
+    are outside integer mode's contract).
+    """
+    dev = resolve_device(device)
+    n = bins_pos.shape[0]
+    bd = np.dtype(_dtype_name(spec.bin_dtype))
+    if np.issubdtype(bd, np.integer):
+        def cast(a):
+            return np.rint(a).astype(bd)
+    else:
+        def cast(a):
+            return a.astype(bd)
+    dt = np.dtype(_dtype_name(spec.dtype))
+    pos_lo, pos_hi = occupied_bounds_np(bins_pos)
+    neg_lo, neg_hi = occupied_bounds_np(bins_neg)
+    host = dict(
+        bins_pos=cast(bins_pos),
+        bins_neg=cast(bins_neg),
+        zero_count=cast(zero),
+        count=cast(count),
+        sum=total.astype(dt),
+        min=vmin.astype(dt),
+        max=vmax.astype(dt),
+        collapsed_low=cast(clow),
+        collapsed_high=cast(chigh),
+        key_offset=np.full((n,), spec.key_offset, dtype=np.int32),
+        pos_lo=pos_lo,
+        pos_hi=pos_hi,
+        neg_lo=neg_lo,
+        neg_hi=neg_hi,
+        neg_total=cast(bins_neg.sum(axis=-1)),
+        tile_sums=cast(tile_sums_np(bins_pos, bins_neg)),
+    )
+    return SketchState(**{f: torch.from_numpy(host[f]).to(dev) for f in LEAVES})
 
 
 def _windowed_call(spec, lo_w, n_w, w_t, with_neg, state, qs):

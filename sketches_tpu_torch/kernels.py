@@ -21,9 +21,10 @@ else touches it.
 
 The plans (``plan_window``, ``plan_state_window``, ``plan_tile_query``,
 ``tile_query_eligible``, ``choose_query_engine``) are the JAX package's,
-so the port routes a query to the same tier for the same state.  The one
-environment variable the port reads is the overlap switch,
-``SKETCHES_TPU_OVERLAP`` (:func:`overlap_enabled`).
+so the port routes a query to the same tier for the same state.  The
+overlap switch, ``SKETCHES_TPU_OVERLAP`` (:func:`overlap_enabled`), is the
+one environment variable the device tier reads (the host tier reads
+``SKETCHES_TPU_NATIVE``, in ``native.py``).
 """
 
 from __future__ import annotations
@@ -764,8 +765,7 @@ def tile_query_eligible(spec: SketchSpec, q_total: int, window_plan) -> bool:
 
 
 #: The overlap engine's switch, read with the JAX package's convention: on
-#: unless set to the literal "0".  The only environment variable the port
-#: reads.
+#: unless set to the literal "0".
 OVERLAP_ENV = "SKETCHES_TPU_OVERLAP"
 
 

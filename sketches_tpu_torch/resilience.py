@@ -1,8 +1,10 @@
 """Error taxonomy of the PyTorch port (counterpart of ``sketches_tpu.resilience``).
 
-The exception classes, and the two reports of the distributed tier's
-shard-loss and reshard accounting.  The engine-health ledger and its
-demotion records follow with the robustness slice.  Class names, bases and
+The exception classes, the two reports of the distributed tier's
+shard-loss and reshard accounting, and the quarantine report of the bulk
+wire decode (``pb.wire.bytes_to_state(errors="quarantine")``).  The
+engine-health ledger and its demotion records follow with the robustness
+slice.  Class names, bases and
 fields match the JAX package's, so callers catch and read the same types
 from either.
 """
@@ -10,7 +12,7 @@ from either.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
@@ -19,8 +21,13 @@ __all__ = [
     "SketchValueError",
     "SpecError",
     "UnequalSketchParametersError",
+    "WireDecodeError",
+    "BlobTooLarge",
+    "CheckpointCorrupt",
     "EngineUnavailable",
     "ShardLossError",
+    "QuarantineRecord",
+    "QuarantineReport",
     "ShardLossReport",
     "ReshardReport",
 ]
@@ -42,6 +49,22 @@ class SpecError(SketchValueError):
 
 class UnequalSketchParametersError(SketchValueError):
     """Raised when merging sketches whose specs (gamma, window) differ."""
+
+
+class WireDecodeError(SketchValueError):
+    """A wire blob failed the decode contract (structure, limits)."""
+
+
+class BlobTooLarge(WireDecodeError):
+    """Raised (or quarantined as ``over_limit``) when a wire blob exceeds
+    the caller's ``max_blob_bytes`` admission cap."""
+
+
+class CheckpointCorrupt(SketchError):
+    """A checkpoint failed restore validation: truncated file, bad
+    archive, checksum mismatch, or missing fields.  Deliberately not a
+    ``ValueError``: corruption is an integrity failure, not a bad
+    argument, and must not be swallowed by value-error handlers."""
 
 
 class EngineUnavailable(SketchError, RuntimeError):
@@ -119,3 +142,56 @@ class ReshardReport:
     def total_dropped_fraction(self) -> float:
         total = float(self.surviving_count.sum() + self.dropped_count.sum())
         return self.total_dropped / max(total, 1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuarantineRecord:
+    """One quarantined blob: its batch index, a stable reason ``kind``
+    (``unparseable`` / ``mapping_mismatch`` / ``over_limit`` /
+    ``invalid`` / ``error``), the exception class name, and its message."""
+
+    index: int
+    kind: str
+    error: str
+    message: str
+
+
+@dataclasses.dataclass
+class QuarantineReport:
+    """Accounting for one quarantine-mode bulk decode.
+
+    ``records`` lists every quarantined blob (index + structured reason),
+    in batch order.  Quarantined streams decode as empty rows (zero mass)
+    in the returned state; every other stream decodes bit-identically to a
+    clean decode of the same blob.
+    """
+
+    total: int
+    records: List[QuarantineRecord] = dataclasses.field(default_factory=list)
+
+    def add(self, index: int, kind: str, exc: BaseException) -> None:
+        self.records.append(
+            QuarantineRecord(index, kind, type(exc).__name__, str(exc)[:500])
+        )
+
+    @property
+    def indices(self) -> List[int]:
+        return [r.index for r in self.records]
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for r in self.records:
+            out[r.kind] = out.get(r.kind, 0) + 1
+        return out
+
+    @property
+    def n_quarantined(self) -> int:
+        return len(self.records)
+
+    @property
+    def n_ok(self) -> int:
+        return self.total - len(self.records)
+
+    def __bool__(self) -> bool:  # truthy iff anything was quarantined
+        return bool(self.records)

@@ -375,3 +375,100 @@ def test_facade_routes_through_kernels(dev):
     tier, again = sk.get_quantile_values_resolved(qs, disabled_tiers=("overlap",))
     assert tier == "windowed" and kernels.launch_counts()["fused_quantile_windowed"] == 1
     assert torch.equal(vals, again)
+
+
+def _pinned_facade(n, seed, device, negate=0.4):
+    """A facade with every stream on one pinned window (no auto-centring),
+    two mixed-sign batches through the kernels."""
+    sk = batched.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512, key_offset=-200,
+                                 device=device)
+    r = np.random.RandomState(seed)
+    for _ in range(2):
+        v = r.lognormal(0, 2, (n, 256)) * np.where(r.rand(n, 256) < negate, -1, 1)
+        sk.add(v.astype(np.float32))
+    return sk
+
+
+def test_wire_round_trip_on_the_card(dev):
+    """16,384 pinned streams: encode -> decode onto the card -> encode gives
+    the same bytes, the decoded state equals the original on every leaf the
+    wire carries (sum, min, max and the collapse counters are not on it)
+    and the default route answers through the overlap kernel bit for
+    bit."""
+    from sketches_tpu_torch.pb import wire
+
+    sk = _pinned_facade(16384, 11, dev)
+    blobs = wire.state_to_bytes(sk.spec, sk.state)
+    back = wire.bytes_to_state(sk.spec, blobs, device=dev)
+    assert back.device == sk.state.device
+    assert wire.state_to_bytes(sk.spec, back) == blobs
+    off_wire = ("sum", "min", "max", "collapsed_low", "collapsed_high")
+    for f in batched.LEAVES:
+        if f not in off_wire:
+            assert torch.equal(getattr(back, f), getattr(sk.state, f)), f
+    dec = batched.BatchedDDSketch(16384, spec=sk.spec, state=back)
+    qs = [0.5, 0.9, 0.99, 0.999]
+    kernels.reset_launch_counts()
+    tier_a, a = sk.get_quantile_values_resolved(qs)
+    tier_b, b = dec.get_quantile_values_resolved(qs)
+    assert tier_a == tier_b == "overlap"
+    assert kernels.launch_counts()["fused_quantile_tiles_overlap"] == 2
+    assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def test_checkpoint_restores_onto_the_card(dev, tmp_path):
+    from sketches_tpu_torch import checkpoint
+
+    sk = _pinned_facade(4096, 12, dev)
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save(path, sk)
+    back = checkpoint.restore(path)  # the card by default
+    assert back.device.type == "cuda" and back.engine == "kernel"
+    for f in batched.LEAVES:
+        assert torch.equal(getattr(back.state, f), getattr(sk.state, f)), f
+    qs = [0.5, 0.99]
+    assert torch.equal(back.get_quantile_values(qs), sk.get_quantile_values(qs))
+    _, cpu_state = checkpoint.restore_state(path, device="cpu")
+    assert torch.equal(cpu_state.bins_neg, sk.state.bins_neg.cpu())
+
+
+@pytest.mark.parametrize("native_tier", [True, False], ids=["native", "device"])
+def test_torch_ddsketch_on_the_card_equals_cpu(dev, native_tier, monkeypatch):
+    """The single-sketch facade on the card against the same facade on the
+    CPU: the same plain batched functions on the same f32 values, so every
+    leaf but ``sum`` is equal and quantiles agree to rtol 1e-6.  Values sit
+    mid-bucket: the card's and the CPU's f32 ``log`` may round a value
+    within an ulp of a bucket edge to neighbouring keys."""
+    from sketches_tpu_torch import ddsketch, native
+
+    if not native_tier:
+        monkeypatch.setenv(native.NATIVE_ENV, "0")
+    native.reset()
+    try:
+        r = np.random.RandomState(13)
+        v = r.lognormal(0, 2, 100_000) * np.where(r.rand(100_000) < 0.4, -1, 1)
+        gamma = 1.01 / 0.99
+        v = np.sign(v) * gamma ** (np.ceil(np.log(np.abs(v)) / np.log(gamma)) - 0.5)
+        v = v.astype(np.float32).astype(np.float64)
+        sks = [ddsketch.DDSketch(0.01, backend="torch", device=d) for d in (dev, "cpu")]
+        for sk in sks:
+            assert sk.flush_tier == ("native" if native_tier else "device")
+            sk.add_many(v[:90_000])
+            for x in v[90_000:].tolist():
+                sk.add(x)
+        card, cpu = sks
+        assert (card.count, card.sum, card.zero_count) == (cpu.count, cpu.sum, cpu.zero_count)
+        card._settle()
+        cpu._settle()
+        for f in batched.LEAVES:
+            a, b = getattr(card._state, f).cpu(), getattr(cpu._state, f)
+            if f == "sum":
+                assert torch.allclose(a, b, rtol=1e-5)
+            else:
+                assert torch.equal(a, b), f
+        for q in (0.0, 0.5, 0.9, 0.99, 0.999, 1.0):
+            assert card.get_quantile_value(q) == pytest.approx(cpu.get_quantile_value(q),
+                                                                rel=1e-6)
+    finally:
+        monkeypatch.delenv(native.NATIVE_ENV, raising=False)
+        native.reset()
