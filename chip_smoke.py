@@ -24,7 +24,8 @@ plain PyTorch version on the card, then drives three paths at full size:
 streams, one mixed-sign batch through the facade: the same bytes as the
 1M x 512 state).
 
-Three host-side phases follow the device paths:
+Three host-side phases follow the device paths (wire and checkpoint at
+262,144 streams):
 
 * ``host_tier``: ``DDSketch(backend="torch")`` on the card at the default
   window (2048 bins), 4,194,304 lognormal(0, 2) values (40% negated)
@@ -32,14 +33,22 @@ Three host-side phases follow the device paths:
   native-buffered tier and once with ``SKETCHES_TPU_NATIVE=0``; quantiles
   against numpy's exact ones, the two tiers against each other, and a
   pure-Python ``DDSketch`` merged in.  The native library must build.
-* ``wire``: the positive and mixed 1M x 512 final states through
-  ``pb.wire`` (encode, native decode, mass conservation, native against
-  pure-Python decode on 65,536 streams, against the host-sketch path on
-  4,096), and an exact round trip of a third 1M x 512 state on a pinned
-  window whose decoded facade answers as the original on both routes.
-* ``checkpoint``: that pinned facade saved and restored, the distributed
-  facade's partials saved and restored onto its mesh (the ``xla`` floor
-  answers as before), and a corrupted file refused.
+* ``wire``: the first 262,144 streams of the positive and mixed final
+  states through ``pb.wire`` (encode, native decode, mass conservation,
+  native against pure-Python decode on 65,536 streams, against the
+  host-sketch path on 4,096), and an exact round trip of a 262,144 x 512
+  state on a pinned window whose decoded facade answers as the original
+  on both routes.
+* ``checkpoint``: that pinned facade saved and restored, the partials of a
+  262,144-stream two-shard distributed facade saved and restored onto its
+  mesh (the ``xla`` floor answers as before), and a corrupted file refused.
+
+Then the ``backends`` phase (``phase_backends``): the uniform-collapse
+``AdaptiveDDSketch`` at 1M x 512 against its ``engine="plain"`` twin, with
+a fixed quarter of heavy-tailed streams, its merge, the ``MomentDDSketch``
+on the same traffic, and both ``SketchPayload`` envelopes and checkpoints
+at 262,144 streams.  ``kernels_vs_plain`` also holds K2-K5 to their plain
+versions on the smallest weighted rank boundary.
 
 Each path (the wire and checkpoint phases too) resets the launch counters
 before it runs and reads them after.
@@ -92,6 +101,10 @@ SEED = 20261016
 HOST_VALUES = 1 << 22
 HOST_SCALAR = 100_000
 HOST_MERGED = 200_000
+# The wire, checkpoint and envelope phases run at 262,144 streams (the first
+# 262,144 of the main paths' states; the pinned and distributed states are
+# built at that size): host work, which grows with the stream count.
+WIRE_STREAMS = 1 << 18
 # The wire phase: streams decoded by both drivers, and checked against the
 # host-sketch path.
 WIRE_DRIVER_SLICE = 65536
@@ -460,14 +473,75 @@ def phase_kernels_vs_plain(device) -> dict:
                     errs["fused_quantile"], require_rel(got, ref, 1e-6, "fused_quantile"))
                 require_rel(got, batched.quantile(spec, st, qk), 1e-6,
                             "fused_quantile vs batched.quantile")
+    boundary = _weighted_rank_boundary(device, errs)
     torch.cuda.synchronize()
     emit("kernels_vs_plain", ingest_cases=checked, max_abs_err=errs,
-         ingest_sum_col_max_rel=sum_rel,
+         ingest_sum_col_max_rel=sum_rel, weighted_rank_boundary=boundary,
          tolerance="unit-weight ingest bit-identical; weighted ingest rtol 1e-5; sum column"
          " atol 1e-5*sum|v*w|; queries equal bucket (values rtol 1e-6: decode exp ulps);"
          " overlap equal to tiles exactly; max_abs_err of the ingest covers histograms and"
-         " every column but sum")
+         " every column but sum; the weighted rank boundary: each query kernel equal to its"
+         " plain version bit for bit")
     return errs
+
+
+# The smallest weighted rank boundary (one stream, alpha 0.02, 256 bins):
+# its third prefix sum, accumulated in f32, equals rank = count - 1 at q = 1,
+# and the JAX package (and the pure-Python DDSketch) answers 2.6642716.
+BOUNDARY_FIRST = ((0.43233886, 0.20904201), (1.0375978, 0.97834975))
+BOUNDARY_SECOND = (2.7012644, 0.36471483)
+BOUNDARY_ANSWER = 2.6642716
+
+
+def _weighted_rank_boundary(device, errs) -> dict:
+    """The boundary stream tiled over 256 streams through the facade, then
+    K2, K3, K4 and K5 each against its plain version on the card: equal bit
+    for bit, and the answer at q = 1 is the reference's."""
+    import torch
+
+    from sketches_tpu_torch import batched, kernels
+
+    n = 256
+    sk = batched.BatchedDDSketch(n, relative_accuracy=0.02, n_bins=256, device=device)
+    v1, w1 = (torch.tensor(x, device=device).repeat(n, 1) for x in BOUNDARY_FIRST)
+    sk.add(v1, w1).add(torch.tensor(BOUNDARY_SECOND, device=device).repeat(n, 1))
+    spec, st = sk.spec, sk.state
+    qs = torch.tensor([1.0, 0.5, 0.0], device=device)
+    lo_w, n_w, w_t, with_neg = kernels.plan_state_window(spec, st)
+    k_tiles, with_neg_t = kernels.plan_tile_query(spec, st, qs)
+    bn = kernels._stream_block(n)
+    lists_pos, lists_neg, packed = kernels._tile_query_operands(spec, st, qs, bn, k_tiles)
+    windowed_plain = kernels.fused_quantile_windowed_plain(
+        spec, st, kernels._windowed_packed(st, qs), lo_w * w_t * 128, n_w * w_t, with_neg,
+        qs.numel())
+    pairs = {
+        "fused_quantile": (kernels.fused_quantile(spec, st, qs),
+                           kernels.fused_quantile_plain(spec, st, qs)),
+        "fused_quantile_windowed": (
+            kernels.fused_quantile_windowed(spec, st, qs, lo_w, n_wblocks=n_w, w_tiles=w_t,
+                                            with_neg=with_neg),
+            torch.where(kernels._valid(st, qs), windowed_plain, float("nan"))),
+        "fused_quantile_tiles": (
+            kernels.fused_quantile_tiles(spec, st, qs, k_tiles=k_tiles, with_neg=with_neg_t),
+            kernels.fused_quantile_tiles_plain(spec, st, kernels._tiles_packed(spec, st, qs),
+                                               with_neg_t, qs.numel())),
+        "fused_quantile_tiles_overlap": (
+            kernels.fused_quantile_tiles_overlap(spec, st, qs, k_tiles=k_tiles,
+                                                 with_neg=with_neg_t),
+            kernels.fused_quantile_tiles_overlap_plain(spec, st, lists_pos, lists_neg, packed,
+                                                       bn, with_neg_t, qs.numel())),
+    }
+    out = {}
+    for name, (got, ref) in pairs.items():
+        require(torch.equal(got, ref), f"weighted rank boundary: {name} differs from its plain"
+                                       " version")
+        answer = got[0, 0].item()
+        require(answer == float(np.float32(BOUNDARY_ANSWER)),
+                f"weighted rank boundary: {name} answers {answer}, the reference"
+                f" {BOUNDARY_ANSWER}")
+        errs[name] = max(errs[name], max_abs_diff(got, ref))
+        out[name] = answer
+    return out
 
 
 def _exact_lower(x, qs):
@@ -1043,8 +1117,9 @@ def _same_answers(a, b) -> bool:
 
 
 def phase_wire(device, facades: dict) -> dict:
-    """``pb.wire`` on the main paths' final 1M x 512 states, then an exact
-    round trip of a third 1M x 512 state built on a pinned window."""
+    """``pb.wire`` on the first 262,144 streams of the main paths' final
+    states (512 bins), then an exact round trip of a third 262,144 x 512
+    state built on a pinned window."""
     import os
 
     import torch
@@ -1057,7 +1132,7 @@ def phase_wire(device, facades: dict) -> dict:
     out = {}
     kernels.reset_launch_counts()
     for name, sk in facades.items():
-        spec, st = sk.spec, sk.state
+        spec, st = sk.spec, sk.state.map(lambda x: x[:WIRE_STREAMS])
         d2h, _ = _copy_times(device, st, ("bins_pos", "bins_neg", "zero_count", "key_offset"))
         t0 = time.perf_counter()
         blobs = wire.state_to_bytes(spec, st)
@@ -1121,10 +1196,10 @@ def phase_wire(device, facades: dict) -> dict:
 
     # A third state on one pinned window: an exact round trip.
     gen = torch.Generator(device=device).manual_seed(SEED + 31)
-    pinned = BatchedDDSketch(n_streams=N_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS,
+    pinned = BatchedDDSketch(n_streams=WIRE_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS,
                              key_offset=-(N_BINS // 2), device=device)
     for _ in range(N_BATCHES):
-        pinned.add(torch.empty((N_STREAMS, BATCH), device=device).log_normal_(
+        pinned.add(torch.empty((WIRE_STREAMS, BATCH), device=device).log_normal_(
             0.0, 2.0, generator=gen))
     spec, st = pinned.spec, pinned.state
     t0 = time.perf_counter()
@@ -1141,7 +1216,7 @@ def phase_wire(device, facades: dict) -> dict:
     del again, blobs
     diff = _leaves_equal(back, st, WIRE_LEAVES)
     require(not diff, f"the pinned round trip changed {diff}")
-    dec = BatchedDDSketch(N_STREAMS, spec=spec, state=back, device=device)
+    dec = BatchedDDSketch(WIRE_STREAMS, spec=spec, state=back, device=device)
     tier_a, a = pinned.get_quantile_values_resolved(QS)
     tier_b, b = dec.get_quantile_values_resolved(QS)
     require(tier_a == tier_b == "overlap", f"pinned default routes {tier_a}, {tier_b}")
@@ -1152,7 +1227,7 @@ def phase_wire(device, facades: dict) -> dict:
             f"pinned ladder routes {tier_a}, {tier_b}")
     require(_same_answers(a, b), f"the decoded facade answers differently ({tier_a})")
     require(bool(torch.isfinite(a).all()), "pinned answers are not finite")
-    out["pinned"] = {"blobs": N_STREAMS, "bytes": n_bytes, "encode_s": t_enc, "decode_s": t_dec,
+    out["pinned"] = {"blobs": WIRE_STREAMS, "bytes": n_bytes, "encode_s": t_enc, "decode_s": t_dec,
                      "encode_MBps": n_bytes / t_enc / 1e6, "decode_MBps": n_bytes / t_dec / 1e6,
                      "ladder_tier": tier_a, "key_offset": spec.key_offset}
     del back, dec
@@ -1206,20 +1281,27 @@ def _time_writers(pinned) -> list:
     return turns
 
 
-def phase_checkpoint(device, pinned, dist, writers=False) -> dict:
-    """``checkpoint`` on the pinned 1M x 512 facade and on the two-shard
-    distributed facade's partials, through a directory under ``build/``;
-    with ``writers``, also the two npz writers timed on the pinned state."""
+def phase_checkpoint(device, pinned, writers=False) -> dict:
+    """``checkpoint`` on the pinned 262,144 x 512 facade and on the partials
+    of a two-shard distributed facade of 262,144 streams (four batches of
+    positive traffic), through a directory under ``build/``; with
+    ``writers``, also the two npz writers timed on the pinned state."""
     import tempfile
 
     import torch
 
     from sketches_tpu_torch import batched, checkpoint, kernels
-    from sketches_tpu_torch.parallel import SketchMesh
+    from sketches_tpu_torch.parallel import DistributedDDSketch, SketchMesh
     from sketches_tpu_torch.resilience import CheckpointCorrupt
 
     out = {}
     kernels.reset_launch_counts()
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    dist = DistributedDDSketch(WIRE_STREAMS, mesh=SketchMesh(devices=[device, device]),
+                               relative_accuracy=ALPHA, n_bins=N_BINS)
+    for _ in range(N_BATCHES):
+        dist.add(torch.empty((WIRE_STREAMS, BATCH), device=device).log_normal_(
+            0.0, 2.0, generator=gen))
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         path = Path(tmp) / "pinned.npz"
@@ -1291,6 +1373,445 @@ def phase_checkpoint(device, pinned, dist, writers=False) -> dict:
     return out
 
 
+# The backends phase: a fixed quarter of the streams (chosen from the seed)
+# draws lognormal(0, 6), the rest lognormal(0, 2); the moment solve runs on
+# the sampled streams.  The moment envelope is the JAX package's
+# (tests/test_backends.py::TestMoment::test_error_envelope_on_datasets): 5%
+# relative error below q = 0.95, 15% from it, on a large-sample stream.
+HEAVY_SIGMA = 6.0
+MOMENT_QS = (0.1, 0.25, 0.5, 0.75, 0.9, 0.99)
+MOMENT_MID_TOL, MOMENT_TAIL_TOL = 0.05, 0.15
+MOMENT_RESTORE_CHECK = 512
+
+
+def _event_pair_ms(pairs) -> float:
+    """Total ms of recorded (start, end) CUDA event pairs (synchronizes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def _record(fn, pairs):
+    """``fn`` wrapped to record a CUDA event pair around each call."""
+    import torch
+
+    def run(*args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kwargs)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    return run
+
+
+def _heavy_traffic(device, n, seed, light_sigma=2.0):
+    """(per-stream sigma [n], heavy mask [n], generator): a fixed quarter of
+    the streams draws lognormal(0, 6), the rest lognormal(0, light_sigma)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    heavy = torch.zeros(n, dtype=torch.bool, device=device)
+    heavy[torch.randperm(n, device=device, generator=gen)[: n // 4]] = True
+    sigma = torch.where(heavy, HEAVY_SIGMA, light_sigma)
+    return sigma, heavy, gen
+
+
+def _lognormal_rows(sigma, gen):
+    import torch
+
+    z = torch.randn((sigma.shape[0], BATCH), device=sigma.device, generator=gen)
+    return torch.exp(z * sigma[:, None])
+
+
+def _adaptive_alpha_check(spec, levels, koff, clamped_low, clamped_high, kept, est, qs):
+    """Sampled answers against exact lower quantiles: within
+    ``effective_alpha(level) * |x|`` plus the f32 error of the corrected
+    decode (its exponent argument ~ ln|x| rounds once or twice: (2 + 2 |ln x|)
+    ulp), for values whose level bucket lies inside the stream's window.
+
+    Mass that clamped at a window edge stays at that edge key when a later
+    collapse or recentre brings the key inside the window (the backend's
+    counted failure mode, as in the JAX package): ``collapsed_high`` values
+    sit below their true keys and ``collapsed_low`` values above theirs.  So
+    the answer at order statistic ``i`` lies between the exact order
+    statistics ``i - collapsed_high`` and ``i + collapsed_low``, each with
+    the bound above: for a stream with no clamped mass, the exact quantile.
+    Returns (checked, outside the window, streams with clamped mass,
+    answers off the exact quantile's bound but inside that bracket, largest
+    error / bound at the exact quantile)."""
+    import torch
+
+    from sketches_tpu_torch.backends import uniform
+
+    srt = torch.sort(kept.double(), dim=1).values
+    n = srt.shape[1]
+    q = torch.tensor(qs, dtype=torch.float64, device=kept.device)
+    idx = torch.floor(q * (n - 1)).long()[None, :].expand(srt.shape[0], -1)
+    exact = srt.gather(1, idx)
+    lvl = levels.to(torch.int32)
+    k0 = spec.mapping.key_array(exact.float().abs())
+    m = torch.bitwise_left_shift(torch.ones_like(lvl), lvl)[:, None]
+    k_level = -((-k0) // m)
+    inside = (k_level >= koff[:, None]) & (k_level <= koff[:, None] + spec.n_bins - 1)
+    alpha = uniform.effective_alpha(spec, lvl).double()[:, None]
+    eps = float(np.finfo(np.float32).eps)
+    est = est.double()
+
+    def slack(x):
+        return (alpha + eps * (2 + 2 * x.abs().log().abs())) * x.abs()
+
+    ratio = (est - exact).abs() / slack(exact)
+    lo = srt.gather(1, (idx - clamped_high.long()[:, None]).clamp(0, n - 1))
+    hi = srt.gather(1, (idx + clamped_low.long()[:, None]).clamp(0, n - 1))
+    ok = (est >= lo - slack(lo)) & (est <= hi + slack(hi))
+    bad = inside & ~ok
+    require(not bool(bad.any()), f"adaptive: {int(bad.sum())} sampled answers outside"
+                                 " effective_alpha")
+    clamped = (clamped_low + clamped_high) > 0
+    return (int(inside.sum()), int((~inside).sum()), int(clamped.sum()),
+            int((inside & (ratio > 1)).sum()), float(ratio[inside & (ratio <= 1)].max()))
+
+
+def _moment_close(card, cpu, scales, what) -> float:
+    """A card moment leaf against the CPU's: NaN positions equal; an
+    infinity on one side only where the other side's finite sum is within a
+    factor 2 of f32's largest (the overflow edge, which two summation
+    orders may straddle); elsewhere within 1e-5 of the f64 sum of the
+    terms' magnitudes (``scales``; ``None`` = exact).  Returns the largest
+    relative error."""
+    import torch
+
+    a, b = card.cpu().double(), cpu.double()
+    require(torch.equal(torch.isnan(a), torch.isnan(b)), f"moment {what}: NaN positions")
+    inf = torch.isinf(a) | torch.isinf(b)
+    both = torch.isinf(a) & torch.isinf(b)
+    require(torch.equal(a[both], b[both]), f"moment {what}: infinities differ")
+    edge = float(2.0 ** 127)
+    one = inf & ~both
+    require(bool((torch.where(torch.isinf(a), b, a)[one].abs() >= edge).all()),
+            f"moment {what}: an infinity away from the overflow edge")
+    ok = ~torch.isnan(a) & ~inf
+    d = (a - b).abs()[ok]
+    if scales is None:
+        require(bool((d == 0).all()), f"moment {what} differs from the CPU's")
+        return 0.0
+    s = scales[ok]
+    require(bool((d <= 1e-5 * s).all()), f"moment {what}: above 1e-5 * sum |term|")
+    return float((d / s.clamp(min=1e-300)).max()) if d.numel() else 0.0
+
+
+def _moment_scales(kept, k):
+    """f64 sums over each row of |v|**j and |ln v|**j, j = 1..k (positive
+    unit-weight values), and of |v|: the moment leaves' error scales."""
+    import torch
+
+    a = kept.double().abs()
+    la = a.log().abs()
+    p = torch.stack([(a ** j).sum(-1) for j in range(1, k + 1)], -1)
+    lp = torch.stack([(la ** j).sum(-1) for j in range(1, k + 1)], -1)
+    return p, lp, a.sum(-1)
+
+
+def phase_backends(device) -> dict:
+    """The accuracy backends on the card.
+
+    * ``AdaptiveDDSketch(1 << 20, relative_accuracy=0.01, n_bins=512)`` and
+      its ``engine="plain"`` twin take four ``[2**20, 256]`` batches (a fixed
+      quarter of the streams lognormal(0, 6), the rest lognormal(0, 2)):
+      state bit for bit equal, levels, counts, effective alpha on 4096
+      sampled streams, K1 on ``add`` and K5 on the default route; ``add``
+      and its guard-plus-collapse share, and the query on the default,
+      ``windowed`` and ``xla`` routes, timed.  Then the heavy facade merges
+      into a fresh one holding one lognormal(0, 2) batch.
+    * ``MomentDDSketch(1 << 20, n_moments=12)`` takes the same batches: 120
+      bytes a stream, the card's state against the CPU's on the sampled
+      streams, the host solve on them, the envelope on their pooled fold.
+    * At 262,144 streams: the ``SketchPayload`` envelope and checkpoints of
+      a pinned adaptive facade (a quarter lognormal(0, 6), the rest
+      lognormal(0, 1)) and of the moment state's first 262,144 streams.
+    """
+    import tempfile
+
+    import torch
+
+    from sketches_tpu_torch import batched, checkpoint, kernels
+    from sketches_tpu_torch.backends import moment, uniform, wirefmt
+
+    out = {}
+    sigma, heavy, gen = _heavy_traffic(device, N_STREAMS, SEED + 61)
+    ad = uniform.AdaptiveDDSketch(n_streams=N_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS)
+    twin = uniform.AdaptiveDDSketch(n_streams=N_STREAMS, relative_accuracy=ALPHA,
+                                    n_bins=N_BINS, engine="plain")
+    mom = moment.MomentDDSketch(N_STREAMS, n_moments=12)
+    require(ad.engine == "kernel" and twin.engine == "plain" and ad.device.type == "cuda"
+            and mom.device.type == "cuda", "backend facades are not on the card")
+    require(mom.bytes_per_stream() == 120, f"moment bytes a stream {mom.bytes_per_stream()}")
+    nbytes = sum(getattr(mom.state, f).nbytes for f in moment.FIELDS)
+    require(nbytes == 120 * N_STREAMS, f"moment state holds {nbytes} bytes")
+    sample = torch.randperm(N_STREAMS, device=device, generator=gen)[:N_SAMPLED]
+    kept = []
+    guard, adds, mom_adds, stats, collapses = [], [], [], [], []
+    ad._preguard = _record(ad._preguard, guard)
+    ad._maybe_collapse = _record(ad._maybe_collapse, guard)
+    # Inside the guard: its fused statistics passes and the collapses.
+    ad._guard_stats = _record(ad._guard_stats, stats)
+    ad._apply_collapse = _record(ad._apply_collapse, collapses)
+    timed_add = _record(ad.add, adds)
+    timed_mom_add = _record(mom.add, mom_adds)
+    cpu_mom = moment.init(mom.spec, N_SAMPLED, "cpu")
+    kernels.reset_launch_counts()
+    per_batch_guard, abs_sum = [], torch.zeros(N_STREAMS, dtype=torch.float64, device=device)
+    guard_parts = []
+    for _ in range(N_BATCHES):
+        v = _lognormal_rows(sigma, gen)
+        kept.append(v[sample])
+        abs_sum += v.abs().sum(-1, dtype=torch.float64)
+        marks = (len(guard), len(stats), len(collapses))
+        timed_add(v)
+        per_batch_guard.append(_event_pair_ms(guard[marks[0]:]))
+        guard_parts.append({"stats_passes": len(stats) - marks[1],
+                            "stats_ms": _event_pair_ms(stats[marks[1]:]),
+                            "collapses": len(collapses) - marks[2],
+                            "collapse_ms": _event_pair_ms(collapses[marks[2]:])})
+        twin.add(v)
+        timed_mom_add(v)
+        cpu_mom = moment.add(mom.spec, cpu_mom, kept[-1].cpu())
+        del v
+    ingest_launches = kernels.ingest_histogram.launches
+    tier, got = ad.get_quantile_values_resolved(QS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    require(ingest_launches > 0, "add launched no ingest kernel")
+    require(tier == "overlap" and launches["fused_quantile_tiles_overlap"] == 1,
+            f"the adaptive default route resolved {tier!r} without one overlap launch")
+    win_tier, win = ad.get_quantile_values_resolved(QS, disabled_tiers=("overlap",))
+    xla_off = ("overlap", "tiles", "windowed", "wxla")
+    xla_tier, xla = ad.get_quantile_values_resolved(QS, disabled_tiers=xla_off)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()  # the main path's, before any timing
+    require(win_tier == "windowed" and launches["fused_quantile_windowed"] == 1,
+            f"without overlap the adaptive facade resolved {win_tier!r}")
+    require(xla_tier == "xla", f"the floor resolved {xla_tier!r}")
+    require(_same_answers(got, win) and _same_answers(got, xla),
+            "the adaptive routes answer differently")
+
+    # State and levels against the plain twin, counts, levels.
+    require(torch.equal(ad.level, twin.level), "levels differ from the plain facade")
+    for f in batched.LEAVES:
+        a, b = getattr(ad.state.base, f), getattr(twin.state.base, f)
+        if f == "sum":
+            require(bool(((a - b).abs() <= 1e-5 * abs_sum).all()), "sum differs from the plain"
+                                                                     " facade")
+        else:
+            require(torch.equal(a, b), f"leaf {f} differs from the plain facade")
+    level = ad.level
+    require(int(level.max()) <= ad.spec.max_collapses, "a level beyond max_collapses")
+    require(bool((level[heavy] >= 1).all()), "a heavy stream did not collapse")
+    require(bool((ad.count == N_BATCHES * BATCH).all()), "count differs from the values")
+    twin_tier, twin_vals = twin.get_quantile_values_resolved(QS)
+    require(_same_answers(got, twin_vals), "the plain facade answers differently")
+    base = ad.state.base
+    checked, outside, clamped_streams, shifted, ratio = _adaptive_alpha_check(
+        ad.spec, level[sample], base.key_offset[sample], base.collapsed_low[sample],
+        base.collapsed_high[sample], torch.cat(kept, 1), got[sample], QS)
+    require(bool(torch.isfinite(got).all()) and got.shape == (N_STREAMS, len(QS)),
+            "adaptive answers are not finite [N, Q]")
+    collapses = {int(k): int(c) for k, c in enumerate(torch.bincount(level.cpu()))}
+    heavy_levels = {int(k): int(c) for k, c in enumerate(torch.bincount(level[heavy].cpu()))}
+    add_ms = [a.elapsed_time(b) for a, b in adds]
+    out["adaptive"] = {
+        "tier": tier, "ladder_tier": win_tier, "floor_tier": xla_tier, "plain_tier": twin_tier,
+        "levels": collapses, "heavy_levels": heavy_levels, "launches": launches,
+        "add_ms_per_batch": add_ms, "guard_ms_per_batch": per_batch_guard,
+        "guard_parts_per_batch": guard_parts,
+        "steady_add_ms": statistics.median(add_ms[1:]),
+        "steady_guard_share": statistics.median(
+            g / a for g, a in zip(per_batch_guard[1:], add_ms[1:])),
+        "alpha_checked": checked, "alpha_outside_window": outside,
+        "alpha_streams_with_clamped_mass": clamped_streams,
+        "alpha_inside_clamp_bracket_only": shifted, "alpha_max_err_over_bound": ratio,
+        "collapsed_fraction_max": float(ad.collapsed_fraction().max()),
+        "query_ms": event_ms(lambda: ad.get_quantile_values(QS)),
+        "windowed_query_ms": event_ms(
+            lambda: ad.get_quantile_values_resolved(QS, disabled_tiers=("overlap",))),
+        "xla_query_ms": event_ms(lambda: ad.get_quantile_values_resolved(
+            QS, disabled_tiers=xla_off)),
+        "plain_query_ms": event_ms(lambda: twin.get_quantile_values(QS)),
+    }
+    del twin, twin_vals, win, xla
+    torch.cuda.empty_cache()
+
+    # Merge the heavy facade into a fresh one holding lognormal(0, 2).
+    fresh = uniform.AdaptiveDDSketch(n_streams=N_STREAMS, relative_accuracy=ALPHA,
+                                     n_bins=N_BINS)
+    fresh.add(_lognormal_rows(torch.full_like(sigma, 2.0), gen))
+    spec = ad.spec
+    pair_max = torch.maximum(fresh.level, ad.level)
+    a2 = uniform.collapse_to(spec, fresh.state, pair_max)
+    b2 = uniform.collapse_to(spec, ad.state, pair_max)
+    lo, hi, occ = uniform._union_span(spec, a2.base, b2.base)
+    wider = occ & (hi - lo + 1 > spec.n_bins) & (pair_max < spec.max_collapses)
+    del a2, b2
+    count0 = fresh.count + ad.count
+    fresh_levels = {int(k): int(c) for k, c in enumerate(torch.bincount(fresh.level.cpu()))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.merge(ad)
+    torch.cuda.synchronize()
+    t_merge = time.perf_counter() - t0
+    require(torch.equal(fresh.count, count0), "merge did not conserve count")
+    require(torch.equal(fresh.level[~wider], pair_max[~wider]),
+            "merged levels differ from the pairwise max")
+    require(bool((fresh.level[wider] > pair_max[wider]).all()),
+            "a merged union wider than the window did not collapse further")
+    out["merge"] = {"s": t_merge, "fresh_levels": fresh_levels,
+                    "streams_collapsed_past_pairwise_max": int(wider.sum())}
+    del fresh
+    torch.cuda.empty_cache()
+
+    # Moment: the card against the CPU on the sampled streams, the host
+    # solve, the envelope on the pooled fold of the sampled streams.
+    kept_all = torch.cat(kept, 1)
+    sub = mom.state.map(lambda x: x[sample])
+    p_scale, lp_scale, v_scale = (x.cpu() for x in _moment_scales(kept_all, 12))
+    errs = {}
+    for f in moment.FIELDS:
+        scale = {"powers": p_scale, "log_powers": lp_scale, "sum": v_scale}.get(f)
+        errs[f] = _moment_close(getattr(sub, f), getattr(cpu_mom, f), scale, f)
+    t0 = time.perf_counter()
+    answers = moment.quantile(mom.spec, sub, MOMENT_QS)
+    t_solve = time.perf_counter() - t0
+    require(np.isfinite(answers).all(), "moment answers are not finite")
+    host_vals = kept_all.double().cpu().numpy()
+    exact = np.quantile(host_vals, MOMENT_QS, axis=1, method="lower").T
+    rel = np.abs(answers - exact) / np.abs(exact)
+    heavy_s = heavy[sample].cpu().numpy()
+    pooled = {}
+    for name, rows in (("light", ~heavy_s), ("heavy", heavy_s)):
+        idx = torch.from_numpy(np.nonzero(rows)[0]).to(device)
+        part = sub.map(lambda x: x[idx])
+        fold = moment.merge_axis(mom.spec, part.map(lambda x: x[:, None]), axis=0)
+        est = moment.quantile(mom.spec, fold, MOMENT_QS)[0]
+        want = np.quantile(host_vals[rows].ravel(), MOMENT_QS, method="lower")
+        prel = np.abs(est - want) / np.abs(want)
+        tol = np.where(np.asarray(MOMENT_QS) >= 0.95, MOMENT_TAIL_TOL, MOMENT_MID_TOL)
+        require(bool((prel <= tol).all()), f"moment {name} fold outside the envelope: {prel}")
+        pooled[name] = {"streams": int(rows.sum()), "rel_err": prel.tolist()}
+    mom_ms = [a.elapsed_time(b) for a, b in mom_adds]
+    out["moment"] = {
+        "bytes_per_stream": mom.bytes_per_stream(), "add_ms_per_batch": mom_ms,
+        "steady_add_ms": statistics.median(mom_ms[1:]),
+        "solve_s": t_solve, "solve_streams": N_SAMPLED,
+        "solve_ms_per_stream": t_solve / N_SAMPLED * 1e3,
+        "card_vs_cpu_max_rel": errs, "pooled_envelope": pooled,
+        "per_stream_rel_err_median": np.median(rel, 0).tolist(),
+        "per_stream_rel_err_max": rel.max(0).tolist(),
+    }
+    del sub, kept, kept_all, host_vals, ad
+    torch.cuda.empty_cache()
+
+    # The envelope and checkpoints at 262,144 streams.
+    kernels.reset_launch_counts()
+    n = WIRE_STREAMS
+    sig2, heavy2, gen2 = _heavy_traffic(device, n, SEED + 67, light_sigma=1.0)
+    pinned = uniform.AdaptiveDDSketch(n_streams=n, relative_accuracy=ALPHA, n_bins=N_BINS,
+                                      key_offset=-(N_BINS // 2))
+    for _ in range(N_BATCHES):
+        pinned.add(_lognormal_rows(sig2, gen2))
+    base = pinned.state.base
+    occ_lo = base.key_offset + base.occ_lo
+    occ_hi = base.key_offset + base.occ_hi
+    spec = pinned.spec
+    require(bool(((occ_lo >= spec.key_offset) & (occ_hi <= spec.key_offset + N_BINS - 1)).all()),
+            "the pinned adaptive state holds mass outside the spec's window: its decode"
+            " would fold it")
+    require(bool((pinned.level[heavy2] >= 1).all()), "a heavy pinned stream did not collapse")
+    env = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blobs = wirefmt.payload_to_bytes(spec, pinned.state)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = wirefmt.payload_from_bytes(spec, blobs, device=device)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    require(wirefmt.payload_to_bytes(spec, back) == blobs,
+            "adaptive envelope: encode -> decode -> encode changed the bytes")
+    dec = uniform.AdaptiveDDSketch(n, spec=spec, state=back)
+    tier_a, a = pinned.get_quantile_values_resolved(QS)
+    tier_b, b = dec.get_quantile_values_resolved(QS)
+    require(_same_answers(a, b), "the decoded adaptive state answers differently")
+    env["adaptive"] = {"blobs": n, "bytes": sum(map(len, blobs)), "encode_s": t_enc,
+                       "decode_s": t_dec, "tiers": [tier_a, tier_b],
+                       "levels": {int(k): int(c) for k, c in
+                                  enumerate(torch.bincount(pinned.level.cpu()))}}
+    del blobs, back, dec
+    mspec = mom.spec
+    mstate = mom.state.map(lambda x: x[:n].clone())
+    del mom
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    blobs = wirefmt.payload_to_bytes(mspec, mstate)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = wirefmt.payload_from_bytes(mspec, blobs, device=device)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    diff = [f for f in moment.FIELDS if not torch.equal(getattr(back, f), getattr(mstate, f))]
+    require(not diff, f"moment envelope round trip changed {diff}")
+    require(wirefmt.payload_to_bytes(mspec, back) == blobs,
+            "moment envelope: encode -> decode -> encode changed the bytes")
+    env["moment"] = {"blobs": n, "bytes": sum(map(len, blobs)), "encode_s": t_enc,
+                     "decode_s": t_dec}
+    del blobs, back
+    out["envelope"] = env
+
+    ck = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mfacade = moment.MomentDDSketch(n, spec=mspec, state=mstate)
+        for name, facade in (("adaptive", pinned), ("moment", mfacade)):
+            path = Path(tmp) / f"{name}.npz"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(str(path), facade)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            restored = checkpoint.restore(str(path), device=device)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            require(type(restored) is type(facade) and restored.spec == facade.spec,
+                    f"{name}: restored as {type(restored).__name__}")
+            if name == "adaptive":
+                require(torch.equal(restored.level, facade.level), "restored levels differ")
+                diff = _leaves_equal(restored.state.base, facade.state.base, batched.LEAVES)
+                tier_a, a = facade.get_quantile_values_resolved(QS)
+                tier_b, b = restored.get_quantile_values_resolved(QS)
+                require(tier_a == tier_b and _same_answers(a, b),
+                        "the restored adaptive facade answers differently")
+            else:
+                diff = [f for f in moment.FIELDS
+                        if not torch.equal(getattr(restored.state, f), getattr(facade.state, f))]
+                head = slice(0, MOMENT_RESTORE_CHECK)
+                a = moment.quantile(mspec, facade.state.map(lambda x: x[head]), MOMENT_QS)
+                b = moment.quantile(mspec, restored.state.map(lambda x: x[head]), MOMENT_QS)
+                require(np.array_equal(a, b), "the restored moment state answers differently")
+            require(not diff, f"{name}: the restored state differs on {diff}")
+            ck[name] = {"save_s": t_save, "restore_s": t_restore,
+                        "file_bytes": path.stat().st_size}
+            del restored
+            path.unlink()
+    out["checkpoint"] = ck
+    at_262k = kernels.launch_counts()
+    out["launches"] = {k: launches[k] + at_262k[k] for k in launches}
+    emit("backends", **out)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1353,12 +1874,16 @@ def main(argv=None) -> int:
               f" and on a 262,144 x 2048 mixed state")
     torch.cuda.reset_peak_memory_stats(device)
     dist = phase_distributed(device)
-    ckpt = phase_checkpoint(device, pinned, dist.pop("facade"), opts.checkpoint_writers)
+    dist.pop("facade")
+    torch.cuda.empty_cache()
+    ckpt = phase_checkpoint(device, pinned, opts.checkpoint_writers)
     del pinned
+    torch.cuda.empty_cache()
+    backends = phase_backends(device)
     torch.cuda.empty_cache()
 
     def launched(name):
-        return sum(path["launches"][name] for path in (pos, mixed, dist, wire, ckpt))
+        return sum(path["launches"][name] for path in (pos, mixed, dist, wire, ckpt, backends))
 
     src = "sketches_tpu_torch/csrc/"
     rows = [

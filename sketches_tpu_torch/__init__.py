@@ -10,15 +10,20 @@ passes ``device="cpu"``, where every kernel runs its plain PyTorch version.
 The host tier comes with it: the reference-shaped ``DDSketch`` presets
 (``backend="torch"`` puts one on the device tier), the native C++ engine
 (``native``, built with ``g++`` at first use), the protobuf wire format
-(``pb``) and dense checkpoints (``checkpoint``), each byte- and
-bit-compatible with the JAX package's.
+(``pb``) and checkpoints (``checkpoint``), each byte- and bit-compatible
+with the JAX package's.  The accuracy backends (``backends``) put the
+uniform-collapse ``AdaptiveDDSketch`` and the moment-summary
+``MomentDDSketch`` on the same seams, with the JAX package's
+``SketchPayload`` wire envelope.
 
 This package imports torch and numpy only; it never imports JAX or the
 ``sketches_tpu`` package, and protobuf only on the wire paths that need
 message objects.
 """
 
-from sketches_tpu_torch import checkpoint, convert, kernels, native, parallel, pb
+from sketches_tpu_torch import backends, checkpoint, convert, kernels, native, parallel, pb
+from sketches_tpu_torch.backends.moment import MomentDDSketch
+from sketches_tpu_torch.backends.uniform import AdaptiveDDSketch
 from sketches_tpu_torch.batched import BatchedDDSketch, SketchSpec, SketchState
 from sketches_tpu_torch.ddsketch import (
     BaseDDSketch,
@@ -56,6 +61,8 @@ __all__ = [
     "LogCollapsingLowestDenseDDSketch",
     "LogCollapsingHighestDenseDDSketch",
     "BatchedDDSketch",
+    "AdaptiveDDSketch",
+    "MomentDDSketch",
     "DistributedDDSketch",
     "SketchMesh",
     "SketchSpec",
@@ -76,6 +83,7 @@ __all__ = [
     "BlobTooLarge",
     "CheckpointCorrupt",
     "QuarantineReport",
+    "backends",
     "checkpoint",
     "convert",
     "kernels",

@@ -55,6 +55,7 @@ __all__ = [
     "tile_sums_of",
     "tile_sums_np",
     "occupied_bounds_np",
+    "cumsum_f32",
     "to_host_sketches",
     "from_host_sketches",
     "arrays_to_state",
@@ -308,6 +309,21 @@ def occupied_bounds_np(bins: np.ndarray):
     return lo, hi
 
 
+def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
+    """Running sums along the last axis, accumulated in ``x``'s own dtype.
+
+    The one prefix sum of every plain rank walk.  JAX, and ``torch.cumsum``
+    on CUDA, accumulate f32 in f32; ``torch.cumsum`` on the CPU accumulates
+    f32 in f64 and rounds each prefix once, which moves a weighted rank
+    boundary by one occupied bucket.  On the CPU an f32 input therefore
+    goes through numpy's ``add.accumulate``: one f32 add per column, in
+    column order.  Integer bins are exact in any order.
+    """
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.from_numpy(np.cumsum(x.detach().numpy(), axis=-1, dtype=np.float32))
+    return torch.cumsum(x, dim=-1, dtype=x.dtype)
+
+
 def _occupied_bounds(bins: torch.Tensor):
     """Exact occupied span of one store -> (lo [N], hi [N]) int32, with the
     ``(n_bins, -1)`` sentinels for empty rows."""
@@ -455,8 +471,8 @@ def quantile(spec: SketchSpec, state: SketchState, qs) -> torch.Tensor:
     count = state.count
     rank = qs[None, :] * (count[:, None] - 1)
     bd = state.bins_pos.dtype
-    cum_pos = torch.cumsum(state.bins_pos, dim=-1, dtype=bd)
-    cum_neg = torch.cumsum(state.bins_neg, dim=-1, dtype=bd)
+    cum_pos = cumsum_f32(state.bins_pos)
+    cum_neg = cumsum_f32(state.bins_neg)
     rev_rank = neg_count.to(spec.dtype)[:, None] - 1 - rank
     q_total = rank.shape[1]
     int_mode = spec.bins_integer
@@ -709,7 +725,7 @@ def data_center_offsets(spec: SketchSpec, state: SketchState) -> torch.Tensor:
     """Window offsets centring each stream on its binned-mass median key."""
     mass = state.bins_pos + state.bins_neg
     total = mass.sum(-1, dtype=mass.dtype)
-    cum = torch.cumsum(mass, dim=-1, dtype=mass.dtype)
+    cum = cumsum_f32(mass)
     center = (cum < total[:, None] * 0.5).sum(-1).to(torch.int32)
     return torch.where(
         total > 0, state.key_offset + center - _center_bin(spec), state.key_offset

@@ -1,11 +1,12 @@
 """Checkpoint / resume for batched sketch states (PyTorch port).
 
-Counterpart of the dense part of ``sketches_tpu/checkpoint.py``: one host
-copy of the state into a compressed npz of the raw state arrays plus the
-spec, and a copy back onto a device on restore.  The file format is the JAX
-package's own (the same npz member names, spec JSON and sha256 digest), so
-a checkpoint written by either package verifies and restores in the other
-bit for bit.
+Counterpart of ``sketches_tpu/checkpoint.py`` for the batched states of
+every backend (dense ``SketchState``, uniform-collapse ``AdaptiveState``,
+``MomentState``): one host copy of the state into a compressed npz of the
+raw state arrays plus the spec, and a copy back onto a device on restore.
+The file format is the JAX package's own (the same npz member names, spec
+JSON and sha256 digest), so a checkpoint written by either package
+verifies and restores in the other bit for bit.
 
 Durability contract:
 
@@ -21,12 +22,10 @@ Durability contract:
   and the cause.  Checkpoints without a checksum member still restore;
   they skip the content check.
 
-Not ported yet: the ``uniform_collapse`` and ``moment`` backends' states
-(ROADMAP A8; their checkpoints raise ``SpecError``), windowed ring
-checkpoints (``save_windowed`` / ``restore_windowed``, ROADMAP A10), and
-the integrity layer's per-stream fingerprint (ROADMAP A9): a
-``__fingerprint__`` member, which an armed JAX ``integrity`` writes, is
-read past and never verified here.
+Not ported yet: windowed ring checkpoints (``save_windowed`` /
+``restore_windowed``, ROADMAP A10), and the integrity layer's per-stream
+fingerprint (ROADMAP A9): a ``__fingerprint__`` member, which an armed JAX
+``integrity`` writes, is read past and never verified here.
 """
 
 from __future__ import annotations
@@ -41,6 +40,8 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from sketches_tpu_torch.backends.moment import FIELDS as MOMENT_FIELDS
+from sketches_tpu_torch.backends.moment import MomentState
 from sketches_tpu_torch.batched import (
     LEAVES,
     BatchedDDSketch,
@@ -69,28 +70,49 @@ _FIELDS = list(LEAVES)
 _ZLIB_LEVEL = 1
 
 
-def _dense_only(spec: SketchSpec) -> None:
-    if spec.backend != "dense":
-        raise SpecError(
-            f"checkpoints of the {spec.backend!r} backend need its state type,"
-            " which the port does not have yet (ROADMAP A8)"
-        )
+def _fields_of(spec: SketchSpec) -> list:
+    """The npz state members of the spec's backend."""
+    if spec.backend == "moment":
+        return list(MOMENT_FIELDS)
+    if spec.backend == "uniform_collapse":
+        return _FIELDS + ["level"]
+    return list(_FIELDS)
 
 
-def _state_arrays(spec: SketchSpec, state: SketchState) -> dict:
-    """The npz array dict of a dense state: one host copy per leaf."""
-    _dense_only(spec)
+def _state_arrays(spec: SketchSpec, state) -> dict:
+    """The npz array dict of any backend's state: one host copy per leaf.
+    Raises ``SpecError`` when the state type disagrees with
+    ``spec.backend``."""
+    if spec.backend == "uniform_collapse":
+        if not hasattr(state, "base"):
+            raise SpecError(
+                f"uniform_collapse checkpoint needs an AdaptiveState; got {type(state).__name__}"
+            )
+        arrays = {name: getattr(state.base, name).cpu().numpy() for name in _FIELDS}
+        arrays["level"] = state.level.cpu().numpy()
+        return arrays
+    if spec.backend == "moment":
+        if not hasattr(state, "powers"):
+            raise SpecError(
+                f"moment checkpoint needs a MomentState; got {type(state).__name__}"
+            )
+        return {name: getattr(state, name).cpu().numpy() for name in MOMENT_FIELDS}
     return {name: getattr(state, name).cpu().numpy() for name in _FIELDS}
 
 
-def _arrays_to_backend_state(spec: SketchSpec, arrays: dict, device) -> SketchState:
-    """npz arrays -> a dense state on ``device`` (the restore-side twin of
-    :func:`_state_arrays`)."""
-    _dense_only(spec)
-    return SketchState(
-        **{name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-           for name, a in arrays.items()}
-    )
+def _arrays_to_backend_state(spec: SketchSpec, arrays: dict, device):
+    """npz arrays -> the spec's backend state on ``device`` (the
+    restore-side twin of :func:`_state_arrays`)."""
+    t = {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+         for name, a in arrays.items()}
+    if spec.backend == "uniform_collapse":
+        from sketches_tpu_torch.backends.uniform import AdaptiveState
+
+        level = t.pop("level").to(torch.int32)
+        return AdaptiveState(SketchState(**t), level)
+    if spec.backend == "moment":
+        return MomentState(**t)
+    return SketchState(**t)
 
 
 def _spec_json(spec: SketchSpec) -> str:
@@ -187,10 +209,10 @@ def restore_state(path: str, device=None) -> Tuple[SketchSpec, SketchState]:
     """Load (spec, state) written by ``save_state`` (of either package)
     onto ``device`` (the card by default; ``device="cpu"`` for the CPU).
 
-    Raises :class:`CheckpointCorrupt` on any integrity failure (torn file,
-    bad archive, checksum mismatch, missing members); a missing file stays
-    ``FileNotFoundError``, and a checkpoint of a backend the port does not
-    have yet raises ``SpecError``.
+    Returns the spec's backend state (``SketchState``, ``AdaptiveState``
+    or ``MomentState``).  Raises :class:`CheckpointCorrupt` on any
+    integrity failure (torn file, bad archive, checksum mismatch, missing
+    members); a missing file stays ``FileNotFoundError``.
     """
     dev = resolve_device(device)
     try:
@@ -207,9 +229,9 @@ def _restore_state_inner(path: str, device) -> Tuple[SketchSpec, SketchState]:
     with np.load(path) as data:
         meta_json = bytes(data["__spec__"]).decode()
         spec = _spec_from_meta(json.loads(meta_json))
-        _dense_only(spec)
+        fields = _fields_of(spec)
         # Each member once: npz decompresses again on every access.
-        arrays = {name: np.asarray(data[name]) for name in _FIELDS if name in data.files}
+        arrays = {name: np.asarray(data[name]) for name in fields if name in data.files}
         if "__checksum__" in data.files:
             stored = bytes(data["__checksum__"]).decode()
             got = _digest(meta_json, arrays)
@@ -219,6 +241,14 @@ def _restore_state_inner(path: str, device) -> Tuple[SketchSpec, SketchState]:
                     f" (stored {stored[:12]}..., recomputed {got[:12]}...):"
                     " content corrupted after write"
                 )
+    if spec.backend != "dense":
+        missing = [n for n in fields if n not in arrays]
+        if missing:
+            raise CheckpointCorrupt(
+                f"checkpoint {path!r} ({spec.backend} backend) is missing state"
+                f" members {missing}"
+            )
+        return spec, _arrays_to_backend_state(spec, arrays, device)
     # Checkpoints from before per-stream windows carry no offsets: every
     # stream was on the spec default.
     if "key_offset" not in arrays:
@@ -240,7 +270,8 @@ def save(
     sketch: Union[BatchedDDSketch, "DistributedDDSketch"],  # noqa: F821
     partials: bool = False,
 ) -> None:
-    """Checkpoint a batched (or distributed -- folded first) sketch facade.
+    """Checkpoint a sketch facade: batched, adaptive, moment, or
+    distributed (folded first).
 
     ``partials=True`` (distributed facades only; ``SpecError`` otherwise)
     saves the stacked ``[K, n_streams, ...]`` partials instead of the fold:
@@ -261,11 +292,19 @@ def save(
         save_state(path, sketch.spec, sketch.state)
 
 
-def restore(path: str, engine: str = "auto", device=None) -> BatchedDDSketch:
-    """Resume a dense checkpoint as a ``BatchedDDSketch`` on ``device`` (the
-    card by default), with its engine selected here.  Corrupt archives
-    raise ``CheckpointCorrupt`` via :func:`restore_state`."""
+def restore(path: str, engine: str = "auto", device=None):
+    """Resume a checkpoint as the facade of its backend on ``device`` (the
+    card by default), with its engine selected here: a ``BatchedDDSketch``
+    (dense), an ``AdaptiveDDSketch`` (uniform_collapse, levels intact) or a
+    ``MomentDDSketch``.  Corrupt archives raise ``CheckpointCorrupt`` via
+    :func:`restore_state`."""
     spec, state = restore_state(path, device)
+    if spec.backend != "dense":
+        from sketches_tpu_torch.backends import facade_for
+
+        return facade_for(
+            state.n_streams, spec=spec, state=state, engine=engine, device=state.device
+        )
     return BatchedDDSketch(
         state.n_streams, spec=spec, state=state, engine=engine, device=state.device
     )

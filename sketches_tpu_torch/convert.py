@@ -5,7 +5,10 @@ spec as its dataclass fields, a state as one numpy array per leaf (for a
 JAX state, e.g. ``{f: np.asarray(getattr(state, f)) for f in LEAVES}``),
 and the value-sharded partials of a distributed facade the same way, each
 leaf with a leading ``[n_value_shards]`` axis (``np.asarray`` of a JAX
-facade's ``partials`` leaves gathers them so).
+facade's ``partials`` leaves gathers them so).  The accuracy backends'
+states go the same way: an ``AdaptiveState`` as the sixteen dense leaves
+plus ``level``, a ``MomentState`` as its eight leaves
+(``backends.moment.FIELDS``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ __all__ = [
     "state_to_numpy",
     "partials_from_numpy",
     "partials_to_numpy",
+    "adaptive_from_numpy",
+    "adaptive_to_numpy",
+    "moment_from_numpy",
+    "moment_to_numpy",
 ]
 
 _TORCH_DTYPES = {"float32": torch.float32, "int32": torch.int32}
@@ -107,3 +114,56 @@ def partials_to_numpy(partials: SketchState) -> Dict[str, np.ndarray]:
     if partials.bins_pos.ndim != 3:
         raise SpecError("partials are stacked [n_value_shards, n_streams, ...]")
     return state_to_numpy(partials)
+
+
+def adaptive_from_numpy(spec: SketchSpec, leaves: Mapping[str, np.ndarray], device=None):
+    """A port ``AdaptiveState`` on ``device`` (the card by default) from the
+    sixteen dense leaves plus an int32 ``level``."""
+    from sketches_tpu_torch.backends.uniform import AdaptiveState
+
+    if "level" not in leaves:
+        raise SpecError("adaptive state is missing its level leaf")
+    level = np.asarray(leaves["level"])
+    if level.dtype != np.int32:
+        raise SpecError(f"leaf level has dtype {level.dtype}, expected int32")
+    base = state_from_numpy(spec, leaves, device)
+    if level.shape != (base.n_streams,):
+        raise SpecError(f"leaf level has shape {level.shape}, expected ({base.n_streams},)")
+    return AdaptiveState(base, torch.from_numpy(np.array(level, order="C")).to(base.device))
+
+
+def adaptive_to_numpy(astate) -> Dict[str, np.ndarray]:
+    """One numpy array per leaf of an ``AdaptiveState`` (a host copy)."""
+    out = state_to_numpy(astate.base)
+    out["level"] = astate.level.detach().cpu().numpy()
+    return out
+
+
+def moment_from_numpy(spec: SketchSpec, leaves: Mapping[str, np.ndarray], device=None):
+    """A port ``MomentState`` on ``device`` (the card by default) from its
+    eight f32 leaves; ``powers`` and ``log_powers`` are ``[n_streams,
+    spec.n_moments]``."""
+    from sketches_tpu_torch.backends.moment import FIELDS, MomentState
+
+    device = resolve_device(device)
+    missing = [f for f in FIELDS if f not in leaves]
+    if missing:
+        raise SpecError(f"moment state is missing leaves {missing}")
+    out = {}
+    for f in FIELDS:
+        arr = np.asarray(leaves[f])
+        if _torch_dtype(arr.dtype) != spec.dtype:
+            raise SpecError(f"leaf {f} has dtype {arr.dtype}, expected {spec.dtype}")
+        out[f] = torch.from_numpy(np.array(arr, order="C")).to(device)
+    n = out["count"].shape[0]
+    bad = [f for f in ("powers", "log_powers") if tuple(out[f].shape) != (n, spec.n_moments)]
+    if bad:
+        raise SpecError(f"leaves {bad} are not [{n}, {spec.n_moments}]")
+    return MomentState(**out)
+
+
+def moment_to_numpy(mstate) -> Dict[str, np.ndarray]:
+    """One numpy array per leaf of a ``MomentState`` (a host copy)."""
+    from sketches_tpu_torch.backends.moment import FIELDS
+
+    return {f: getattr(mstate, f).detach().cpu().numpy() for f in FIELDS}

@@ -44,6 +44,7 @@ from sketches_tpu_torch.batched import (
     _clip,
     _keys_and_masks,
     _weights_like,
+    cumsum_f32,
 )
 from sketches_tpu_torch.resilience import EngineUnavailable, SketchValueError, SpecError
 
@@ -472,8 +473,8 @@ def fused_quantile_plain(spec: SketchSpec, state: SketchState, qs: torch.Tensor)
     bounds from the bins, the negative total as the last running sum, rank
     masks, clip, decode, three-way select and NaN."""
     f32 = torch.float32
-    cum_pos = torch.cumsum(state.bins_pos.to(f32), dim=-1)
-    cum_neg = torch.cumsum(state.bins_neg.to(f32), dim=-1)
+    cum_pos = cumsum_f32(state.bins_pos.to(f32))
+    cum_neg = cumsum_f32(state.bins_neg.to(f32))
     first_pos, last_pos = _first_last_occupied(state.bins_pos)
     first_neg, last_neg = _first_last_occupied(state.bins_neg)
     neg_count = cum_neg[:, -1:]
@@ -647,7 +648,7 @@ def fused_quantile_windowed_plain(spec, state, packed, lo_bin, n_tiles_win, with
     last_pos = torch.maximum(bds[:, 2:3], first_pos)
 
     def counts(bins, thr, strict):
-        cum = torch.cumsum(bins[:, lo_bin : lo_bin + width], dim=-1)
+        cum = cumsum_f32(bins[:, lo_bin : lo_bin + width])
         cmp = torch.lt if strict else torch.le
         return torch.stack(
             [cmp(cum, thr[:, qi : qi + 1]).sum(-1) for qi in range(q_total)], dim=1
@@ -703,7 +704,7 @@ def quantile_windowed_xla(
     safe = float(2**31 - 256)
 
     def walk(bins, thr, strict):
-        cum = torch.cumsum(bins[:, lo_bin : lo_bin + width], dim=-1, dtype=bd)
+        cum = cumsum_f32(bins[:, lo_bin : lo_bin + width])
         if int_mode:
             it = torch.ceil(thr) - 1 if strict else torch.floor(thr)
             thr, strict = torch.clamp(it, -safe, safe).to(bd), False
@@ -810,8 +811,8 @@ def _tile_targets(spec: SketchSpec, state: SketchState, qs: torch.Tensor):
     f32 = torch.float32
     tiles = state.tile_sums.to(f32)
     tp, tn = tiles[:, :t], tiles[:, t:]
-    cum_tp = torch.cumsum(tp, dim=-1)
-    cum_tn = torch.cumsum(tn, dim=-1)
+    cum_tp = cumsum_f32(tp)
+    cum_tn = cumsum_f32(tn)
     excl_tp = cum_tp - tp
     excl_tn = cum_tn - tn
     neg_count = state.neg_total.to(f32)[:, None]
@@ -1048,7 +1049,7 @@ def _count_and_decode(spec, blk, packed, with_neg, q_total):
     last_pos = torch.maximum(packed[:, base + 2 : base + 3], first_pos)
     is_neg = ut >= float(t)
     tile_all = ut - torch.where(is_neg, float(t), 0.0)
-    cum = torch.cumsum(blk, dim=-1)
+    cum = cumsum_f32(blk)
     cmp = torch.where(is_neg[:, :, None], cum < thr[:, :, None], cum <= thr[:, :, None])
     cnt = cmp.sum(-1).to(torch.float32)
     idx = tile_all * 128.0 + cnt

@@ -4,8 +4,8 @@ Counterpart of ``sketches_tpu/native.py`` over the same, unchanged C++
 sources: ``native/ddsketch_host.cpp`` (a single sketch with the device
 tier's static-window semantics, so ``to_state`` lifts it directly into a
 ``[1, n_bins]`` batched state and ``from_state`` back) and
-``native/ddsketch_wire.cpp`` (the bulk wire scanner ``pb.wire`` decodes
-with).
+``native/ddsketch_wire.cpp`` (the bulk wire scanners ``pb.wire`` and
+``backends.wirefmt`` decode with).
 
 The shared library is built at first use, the way ``_build`` builds the
 CUDA kernels: one ``g++`` with the Makefile's flags into
@@ -207,7 +207,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _bind_wire(lib: ctypes.CDLL) -> bool:
-    """Declare the dense wire scanner's C ABI on a loaded handle.
+    """Declare the wire scanners' C ABI on a loaded handle: the dense
+    scanner and the two ``SketchPayload`` envelope scanners.
 
     Returns False (never raises) when the symbols are absent, when
     ``ddsk_wire_abi_version()`` disagrees with :data:`WIRE_ABI_VERSION`,
@@ -230,6 +231,19 @@ def _bind_wire(lib: ctypes.CDLL) -> bool:
             ctypes.c_char_p, i64,            # prefix, prefix_len
             i64,                             # base
             u8p, dp, i64p, i64p, i64p, dp,   # status, zc, pos, len, j0, out
+        ]
+        # The SketchPayload envelope scanners (backends.wirefmt).
+        lib.ddsk_wire_scan_envelope.restype = i64
+        lib.ddsk_wire_scan_envelope.argtypes = [
+            ctypes.c_char_p, i64, i64p,      # buf, n, offsets
+            i64,                             # expected_backend
+            u8p, i64p, i64p, i64p,           # status, level, dense off/len
+        ]
+        lib.ddsk_wire_scan_moment.restype = i64
+        lib.ddsk_wire_scan_moment.argtypes = [
+            ctypes.c_char_p, i64, i64p,      # buf, n, offsets
+            i64, i64,                        # expected_backend, k
+            u8p, dp, dp, dp,                 # status, scalars, powers, logs
         ]
     except AttributeError:
         return False

@@ -65,11 +65,16 @@ def messages():
     return ddsketch_pb2
 
 
-def _non_dense(spec) -> None:
-    if getattr(spec, "backend", "dense") != "dense":
+def _non_dense(spec) -> bool:
+    return getattr(spec, "backend", "dense") != "dense"
+
+
+def _dense_messages_only(spec) -> None:
+    if _non_dense(spec):
         raise SpecError(
-            f"backend {spec.backend!r} ships as a SketchPayload envelope"
-            " (backends/wirefmt.py), which the port does not have yet (ROADMAP A8)"
+            f"backend {spec.backend!r} ships as SketchPayload envelope bytes"
+            " (batched_to_bytes / batched_from_bytes); DDSketch messages carry"
+            " dense sketches only"
         )
 
 
@@ -195,17 +200,23 @@ class DDSketchProto:
 def batched_to_bytes(spec, state) -> List[bytes]:
     """Every stream of a batch as wire bytes, byte-identical to
     ``to_proto(...).SerializeToString()`` (``pb.wire.state_to_bytes``).
-    Non-dense backends raise ``SpecError`` (their envelopes come with
-    ROADMAP A8)."""
+    Non-dense backends (``uniform_collapse``, ``moment``) emit
+    ``SketchPayload`` envelopes (``backends.wirefmt.payload_to_bytes``); a
+    state type that disagrees with the spec's backend raises ``SpecError``."""
+    if _non_dense(spec):
+        from sketches_tpu_torch.backends.wirefmt import payload_to_bytes
+
+        return payload_to_bytes(spec, state)
     from sketches_tpu_torch.pb.wire import state_to_bytes
 
-    _non_dense(spec)
     return state_to_bytes(spec, state)
 
 
 def batched_to_proto(spec, state) -> list:
     """Every stream of a batch as a wire-format message (parsed from the
-    vectorized encoder's bytes; needs protobuf)."""
+    vectorized encoder's bytes; needs protobuf).  Dense specs only
+    (``SpecError`` otherwise)."""
+    _dense_messages_only(spec)
     pb = messages()
     return [pb.DDSketch.FromString(b) for b in batched_to_bytes(spec, state)]
 
@@ -215,7 +226,7 @@ def batched_from_proto(spec, protos, *, assume_native_linear: bool = False, devi
     into the spec window, mass conserved)."""
     from sketches_tpu_torch.pb.wire import protos_to_state
 
-    _non_dense(spec)
+    _dense_messages_only(spec)
     return protos_to_state(
         spec, protos, assume_native_linear=assume_native_linear, device=device
     )
@@ -223,10 +234,19 @@ def batched_from_proto(spec, protos, *, assume_native_linear: bool = False, devi
 
 def batched_from_bytes(spec, blobs, *, assume_native_linear: bool = False, device=None):
     """Decode raw wire blobs into one batch on ``device``
-    (``pb.wire.bytes_to_state``).  Non-dense specs raise ``SpecError``."""
+    (``pb.wire.bytes_to_state``).  Non-dense specs decode ``SketchPayload``
+    envelopes into their backend state (``AdaptiveState`` /
+    ``MomentState``, ``backends.wirefmt.payload_from_bytes``); an unknown
+    backend enum value, a backend/spec mismatch or structural damage raises
+    ``WireDecodeError``."""
+    if _non_dense(spec):
+        from sketches_tpu_torch.backends.wirefmt import payload_from_bytes
+
+        return payload_from_bytes(
+            spec, blobs, assume_native_linear=assume_native_linear, device=device
+        )
     from sketches_tpu_torch.pb.wire import bytes_to_state
 
-    _non_dense(spec)
     return bytes_to_state(
         spec, blobs, assume_native_linear=assume_native_linear, device=device
     )

@@ -279,3 +279,68 @@ def test_convert_round_trip_of_a_jax_state():
     bad = dict(back, bins_pos=back["bins_pos"].astype(np.int32))
     with pytest.raises(SpecError):
         convert.state_from_numpy(ts, bad, "cpu")
+
+
+# The smallest weighted rank boundary: the JAX package (eager and jitted) and
+# the pure-Python DDSketch answer 2.6642716 at q = 1.  The third prefix sum,
+# accumulated in f32, equals rank = count - 1 exactly; accumulated in f64 and
+# rounded once it lands one ulp above, and the answer drops to 0.4403.
+BOUNDARY_FIRST = ([0.43233886, 0.20904201], [1.0375978, 0.97834975])
+BOUNDARY_SECOND = [2.7012644, 0.36471483]
+
+
+def _boundary_state(n, engine):
+    v1, w1 = (np.tile(np.asarray(x, np.float32), (n, 1)) for x in BOUNDARY_FIRST)
+    v2 = np.tile(np.asarray(BOUNDARY_SECOND, np.float32), (n, 1))
+    j = jb.BatchedDDSketch(n, relative_accuracy=0.02, n_bins=256, engine="xla")
+    jax.block_until_ready(j.add(v1, w1).add(v2).state)
+    t = tb.BatchedDDSketch(n, relative_accuracy=0.02, n_bins=256, engine=engine, device="cpu")
+    t.add(v1, w1).add(v2)
+    return j, t
+
+
+def test_weighted_rank_boundary_matches_jax():
+    """Every plain rank walk accumulates its f32 prefix sums in f32 on the
+    CPU, as JAX does (``batched.cumsum_f32``): the pinned weighted input
+    answers 2.6642716 through the facade on ``engine="plain"`` and through
+    each kernel's plain version."""
+    from sketches_tpu_torch import kernels
+
+    j, t = _boundary_state(128, "plain")
+    want = np.asarray(jb.quantile(j.spec, j.state, jnp.asarray([1.0, 0.5])))
+    assert want[0, 0] == np.float32(2.6642716)
+    assert_state_equal(t.state, j.state, weighted=True, abs_scale=600.0)
+    np.testing.assert_array_equal(t.get_quantile_values([1.0, 0.5]).numpy(), want)
+    st, spec = t.state, t.spec
+    qs = torch.tensor([1.0, 0.5])
+    lo_w, n_w, w_t, with_neg = kernels.plan_state_window(spec, st)
+    k_tiles, with_neg_t = kernels.plan_tile_query(spec, st, qs)
+    answers = {
+        "quantile": tb.quantile(spec, st, qs),
+        "fused_quantile": kernels.fused_quantile(spec, st, qs),
+        "windowed": kernels.fused_quantile_windowed(
+            spec, st, qs, lo_w, n_wblocks=n_w, w_tiles=w_t, with_neg=with_neg),
+        "wxla": kernels.quantile_windowed_xla(
+            spec, st, qs, lo_w * w_t, n_tiles_window=n_w * w_t, with_neg=with_neg),
+        "tiles": kernels.fused_quantile_tiles(
+            spec, st, qs, k_tiles=k_tiles, with_neg=with_neg_t),
+        "overlap": kernels.fused_quantile_tiles_overlap(
+            spec, st, qs, k_tiles=k_tiles, with_neg=with_neg_t),
+        "data_center_offsets": tb.data_center_offsets(spec, st),
+    }
+    centre = answers.pop("data_center_offsets")
+    np.testing.assert_array_equal(
+        centre.numpy(), np.asarray(jb.data_center_offsets(j.spec, j.state)))
+    for name, got in answers.items():
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+
+
+def test_cumsum_f32_accumulates_in_f32():
+    x = torch.tensor([[0.97834975, 1.0, 1.0375978, 1.0]])
+    got = tb.cumsum_f32(x)
+    acc = np.float32(0.0)
+    for i, xi in enumerate(x[0].numpy()):
+        acc = np.float32(acc + xi)
+        assert got[0, i].item() == acc
+    ints = torch.tensor([[3, 0, 2**24, 1]], dtype=torch.int32)
+    assert tb.cumsum_f32(ints).tolist() == [[3, 3, 2**24 + 3, 2**24 + 4]]

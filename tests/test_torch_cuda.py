@@ -472,3 +472,96 @@ def test_torch_ddsketch_on_the_card_equals_cpu(dev, native_tier, monkeypatch):
     finally:
         monkeypatch.delenv(native.NATIVE_ENV, raising=False)
         native.reset()
+
+
+def test_pair_sum_collapse_on_the_card_equals_the_cpu(dev):
+    """The uniform collapse (a pair sum, no atomics) on random integer-valued
+    states, then an adaptive facade driven through the guard, the trigger
+    and a merge: the card's levels and every leaf equal the CPU's (``sum``
+    to rtol 1e-5: f32 sums in another order; ``min``/``max`` to rtol 1e-6:
+    they track the premapped representatives, whose decode ``exp`` may
+    differ by an ulp between the card and the CPU)."""
+    from sketches_tpu_torch.backends import uniform
+
+    spec = batched.SketchSpec(0.01, n_bins=512, backend="uniform_collapse",
+                              collapse_threshold=0.05)
+    r = np.random.RandomState(21)
+    n = 4096
+    bins = np.where(r.rand(2, n, 512) < 0.3, r.randint(1, 50, (2, n, 512)), 0).astype(np.float32)
+    cpu = uniform.init(spec, n, "cpu")
+    for i, name in enumerate(("bins_pos", "bins_neg")):
+        setattr(cpu.base, name, torch.from_numpy(bins[i]))
+    cpu.base.key_offset = torch.from_numpy(r.randint(-600, 200, n).astype(np.int32))
+    cpu.level = torch.from_numpy(r.randint(0, 4, n).astype(np.int32))
+    card = uniform.AdaptiveState(cpu.base.map(lambda t: t.to(dev)), cpu.level.to(dev))
+    mask = torch.from_numpy(r.rand(n) < 0.7)
+    target = torch.from_numpy(r.randint(0, 6, n).astype(np.int32))
+    for a, b in ((uniform.collapse_once(spec, card, mask.to(dev)),
+                  uniform.collapse_once(spec, cpu, mask)),
+                 (uniform.collapse_to(spec, card, target.to(dev)),
+                  uniform.collapse_to(spec, cpu, target))):
+        assert torch.equal(a.level.cpu(), b.level)
+        for f in batched.LEAVES:
+            assert torch.equal(getattr(a.base, f).cpu(), getattr(b.base, f)), f
+    facades = [uniform.AdaptiveDDSketch(n, relative_accuracy=0.01, n_bins=512, device=d)
+               for d in (dev, "cpu")]
+    others = [uniform.AdaptiveDDSketch(n, relative_accuracy=0.01, n_bins=512, device=d)
+              for d in (dev, "cpu")]
+    for sigma in (1.0, 6.0, 2.0):
+        v = r.lognormal(0, sigma, (n, 256)).astype(np.float32)
+        for sk in facades:
+            sk.add(v)
+    w = r.lognormal(3, 1, (n, 256)).astype(np.float32)
+    for sk, o in zip(facades, others):
+        o.add(w)
+        sk.merge(o)
+    card_sk, cpu_sk = facades
+    assert card_sk.engine == "kernel" and int(cpu_sk.level.max()) >= 2
+    assert torch.equal(card_sk.level.cpu(), cpu_sk.level)
+    for f in batched.LEAVES:
+        a, b = getattr(card_sk.state.base, f).cpu(), getattr(cpu_sk.state.base, f)
+        if f == "sum":
+            assert torch.allclose(a, b, rtol=1e-5)
+        elif f in ("min", "max"):
+            assert torch.allclose(a, b, rtol=1e-6, atol=0), f
+        else:
+            assert torch.equal(a, b), f
+    qs = [0.5, 0.9, 0.99, 0.999]
+    assert _rel_ok(card_sk.get_quantile_values(qs), cpu_sk.get_quantile_values(qs), 1e-6)
+
+
+def test_weighted_rank_boundary_kernels_equal_their_plain_versions(dev):
+    """One stream at alpha 0.02 whose third weighted prefix sum equals
+    ``count - 1`` exactly (queue C of the ROADMAP), tiled over 256 streams:
+    K2, K3, K4 and K5 each against its plain version on the card, and the
+    answer at q = 1 is the JAX package's 2.6642716."""
+    n = 256
+    sk = batched.BatchedDDSketch(n, relative_accuracy=0.02, n_bins=256, device=dev)
+    v1 = np.tile(np.asarray([0.43233886, 0.20904201], np.float32), (n, 1))
+    w1 = np.tile(np.asarray([1.0375978, 0.97834975], np.float32), (n, 1))
+    sk.add(v1, w1).add(np.tile(np.asarray([2.7012644, 0.36471483], np.float32), (n, 1)))
+    spec, st = sk.spec, sk.state
+    qs = torch.tensor([1.0, 0.5, 0.0], device=dev)
+    lo_w, n_w, w_t, with_neg = kernels.plan_state_window(spec, st)
+    k_tiles, with_neg_t = kernels.plan_tile_query(spec, st, qs)
+    bn = kernels._stream_block(n)
+    lists_pos, lists_neg, packed_o = kernels._tile_query_operands(spec, st, qs, bn, k_tiles)
+    pairs = {
+        "fused_quantile": (kernels.fused_quantile(spec, st, qs),
+                           kernels.fused_quantile_plain(spec, st, qs)),
+        "windowed": (kernels.fused_quantile_windowed(spec, st, qs, lo_w, n_wblocks=n_w,
+                                                     w_tiles=w_t, with_neg=with_neg),
+                     torch.where(kernels._valid(st, qs), kernels.fused_quantile_windowed_plain(
+                         spec, st, kernels._windowed_packed(st, qs), lo_w * w_t * 128,
+                         n_w * w_t, with_neg, qs.numel()), float("nan"))),
+        "tiles": (kernels.fused_quantile_tiles(spec, st, qs, k_tiles=k_tiles, with_neg=with_neg_t),
+                  kernels.fused_quantile_tiles_plain(spec, st, kernels._tiles_packed(spec, st, qs),
+                                                     with_neg_t, qs.numel())),
+        "overlap": (kernels.fused_quantile_tiles_overlap(spec, st, qs, k_tiles=k_tiles,
+                                                         with_neg=with_neg_t),
+                    kernels.fused_quantile_tiles_overlap_plain(
+                        spec, st, lists_pos, lists_neg, packed_o, bn, with_neg_t, qs.numel())),
+    }
+    for name, (got, ref) in pairs.items():
+        assert torch.equal(got, ref), name
+        assert got[0, 0].item() == np.float32(2.6642716), name

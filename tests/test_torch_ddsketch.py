@@ -354,3 +354,41 @@ def test_device_tier_reports_why(monkeypatch):
         monkeypatch.delenv("SKETCHES_TPU_NATIVE")
         tn.reset()
     assert tn.status()["tier"] == "native"
+
+
+@pytest.mark.parametrize(
+    "mapping,want", [("logarithmic", 5.0028), ("linear_interpolated", 4.9899)]
+)
+def test_integral_positive_rank_matches_pure_python(mapping, want):
+    """q = 0.9 of one stream of eleven values makes ``pos_rank`` exactly 4.0.
+    The port's facade (both engines), its plain ``quantile`` and the JAX
+    package's eager ``quantile`` answer as the pure-Python DDSketch does.
+    JAX's jitted facade answers one bucket lower: XLA:CPU fuses
+    ``q * (count - 1) - (zero_count + neg_total)`` into one FMA, so the
+    rank comes out one ulp under 4.0."""
+    import jax.numpy as jnp
+
+    from sketches_tpu import batched as jb
+    from sketches_tpu import mapping as jm
+    from sketches_tpu.store import DenseStore
+    from sketches_tpu_torch import BatchedDDSketch
+    from sketches_tpu_torch import batched as tb
+
+    v = np.asarray([[-1, -2, -3, -4, 0, 1, 2, 3, 4, 5, 6]], np.float32)
+    py = jd.BaseDDSketch(
+        mapping=jm.mapping_from_name(mapping, ALPHA), store=DenseStore(),
+        negative_store=DenseStore(),
+    )
+    for x in v[0].tolist():
+        py.add(x)
+    ref = py.get_quantile_value(0.9)
+    assert ref == pytest.approx(want, abs=5e-5)
+    js = jb.SketchSpec(ALPHA, mapping_name=mapping, n_bins=512)
+    eager = float(jb.quantile(js, jb.add(js, jb.init(js, 1), jnp.asarray(v)), jnp.asarray([0.9]))[0, 0])
+    for engine in ("plain", "auto"):
+        sk = BatchedDDSketch(1, relative_accuracy=ALPHA, mapping=mapping, n_bins=512,
+                             engine=engine, device="cpu")
+        sk.add(v)
+        got = float(sk.get_quantile_value(0.9)[0])
+        assert got == pytest.approx(ref, rel=1e-6, abs=0) and got == eager, engine
+        assert float(tb.quantile(sk.spec, sk.state, [0.9])[0, 0]) == got

@@ -13,8 +13,11 @@ Tolerances, with their reasons:
   mapping's key follows its backend's f32 ``log``, and torch's differs from
   XLA:CPU's by an ulp on some values (ROADMAP queue C);
   ``test_log_key_at_bucket_edges`` pins exactly where.
-* Decoded values are compared at **rtol 1e-6**: ``exp`` (and the quadratic
-  mapping's ``sqrt``) may differ by one ulp between XLA:CPU and torch.
+* Decoded values are compared at **rtol 1e-6**: the logarithmic and
+  interpolated decodes' ``exp``/``exp2`` may differ by one ulp between
+  XLA:CPU and torch.  The quadratic decode is compared **exactly**: its
+  ``sqrt`` is taken in f64 and rounded once, which is correctly rounded as
+  XLA:CPU's f32 ``sqrt`` is (torch's CPU f32 ``sqrt`` is not).
 * The scalar path is the same ``math`` code in both packages: **exact**.
 """
 
@@ -118,6 +121,21 @@ def test_value_array_matches_jax_on_a_2048_bin_window(name, lo_key):
     np.testing.assert_allclose(vt, vj, rtol=1e-6)
     sat = (vj == np.finfo(F32).max) | (vj == TINY)
     np.testing.assert_array_equal(vt[sat], vj[sat])
+
+
+@pytest.mark.parametrize("alpha", [0.01, 0.05])
+def test_quadratic_decode_matches_jax_exactly(alpha):
+    """Keys -4000..4000 decode bit for bit as JAX eager does (key -51 at
+    alpha 0.01 is 0.38553876; an f32 ``sqrt`` that is not correctly rounded
+    gives 0.3855388)."""
+    j = jm.mapping_from_name("quadratic_interpolated", alpha)
+    t = tm.mapping_from_name("quadratic_interpolated", alpha)
+    keys = np.arange(-4000, 4001, dtype=np.int32)
+    vj = np.asarray(j.value_array(jnp.asarray(keys)))
+    vt = t.value_array(torch.from_numpy(keys)).numpy()
+    np.testing.assert_array_equal(vt, vj)
+    if alpha == 0.01:
+        assert vt[keys == -51][0] == F32(0.38553876)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -325,12 +325,17 @@ def test_host_sketch_bridges_match_jax():
 def test_non_dense_and_bad_options_refuse():
     from sketches_tpu_torch.resilience import SketchValueError, SpecError
 
+    from sketches_tpu_torch.resilience import WireDecodeError
+
     spec = tb.SketchSpec(0.01, n_bins=128, backend="moment")
-    st = tb.init(tb.SketchSpec(0.01, n_bins=128), 2, "cpu")
-    with pytest.raises(SpecError, match="A8"):
+    dense = tb.SketchSpec(0.01, n_bins=128)
+    st = tb.init(dense, 2, "cpu")
+    # Non-dense specs ride the SketchPayload envelope: a dense state under a
+    # moment spec, and dense blobs under it, are refused.
+    with pytest.raises(SpecError, match="MomentState"):
         tpb.batched_to_bytes(spec, st)
-    with pytest.raises(SpecError, match="A8"):
-        tpb.batched_from_bytes(spec, [], device="cpu")
+    with pytest.raises(WireDecodeError, match="spec wants 'moment'"):
+        tpb.batched_from_bytes(spec, tpb.batched_to_bytes(dense, st), device="cpu")
     with pytest.raises(SketchValueError):
         tw.bytes_to_state(tb.SketchSpec(), [], device="cpu", errors="ignore")
 
