@@ -50,8 +50,26 @@ on the same traffic, and both ``SketchPayload`` envelopes and checkpoints
 at 262,144 streams.  ``kernels_vs_plain`` also holds K2-K5 to their plain
 versions on the smallest weighted rank boundary.
 
-Each path (the wire and checkpoint phases too) resets the launch counters
-before it runs and reads them after.
+Then the ``robustness`` phase (``phase_robustness``), the only one that
+arms anything: ``pallas.lowering`` armed once for each kernel tier in turn
+on a 1M x 512 mixed-sign facade, each answer on the next tier equal to the
+plain facade's bit for bit (``overlap -> tiles -> windowed -> wxla ->
+xla``, four ``batched.query`` steps in the health ledger), each tier's
+query timed; ``pallas.ingest`` once, the batch replayed on the plain path;
+the same walk on the two-shard ``DistributedDDSketch`` down to its floor
+(K2); and the integrity layer armed in raise mode at 262,144 x 512: a
+clean merge and fold, a flipped bin refused at the merge by stream,
+``repair``, a checkpoint's ``__fingerprint__`` verified (and a doctored
+one refused), ``merge_partial`` with a dead shard, a torn and a clean
+``reshard``.  It also prints the positive path's disarmed ``add`` and
+``overlap`` query times beside those recorded before the layer existed.
+
+Every phase that arms nothing must leave ``resilience.health()`` without
+a downgrade (the host-tier and wire phases turn the native kill switch
+on, which records exactly one ``native`` event each); a demotion fails
+the smoke with the ledger's text.  Each path (the wire and checkpoint
+phases too) resets the launch counters before it runs and reads them
+after.
 Answers are checked against the plain facade and against exact quantiles of
 sampled streams; each kernel is timed beside its plain version and its
 bound; one JSON line is printed per phase.  The last line is
@@ -1812,6 +1830,392 @@ def phase_backends(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The robustness phase: the demotion ladder, the ingest demotion and the
+# armed integrity layer (fault sites armed here and nowhere else).
+# ---------------------------------------------------------------------------
+
+# The ladder walk's tiers, in order, and what each query must resolve after
+# the previous tier was armed to fail.
+LADDER_WALK = (("overlap", "tiles"), ("tiles", "windowed"), ("windowed", "wxla"),
+               ("wxla", "xla"))
+# Per-call exclusions that resolve each tier on mixed traffic (the timing
+# facade shares the walked facade's state, without its demotions).
+TIER_EXCLUSIONS = {"overlap": (), "tiles": ("overlap",), "windowed": ("overlap", "tiles"),
+                   "wxla": ("windowed",), "xla": ("windowed", "wxla")}
+# The positive path's facade ``add`` and ``overlap`` query times recorded
+# before the robustness layer existed, on the same card model (PERF.md,
+# section 5): printed beside this run's as a record, not a gate.
+BASELINE_ADD_MS = 11.257
+BASELINE_OVERLAP_QUERY_MS = 15.222
+
+
+def require_ledger(phase: str, expected=()) -> None:
+    """The health ledger after a phase that armed nothing: exactly the
+    ``(component, from, to, reason)`` events ``expected`` (the kill switch a
+    phase turns on deliberately records one), else the phase fails with the
+    ledger's text.  Clears the ledger for the next phase."""
+    from sketches_tpu_torch import resilience
+
+    got = resilience.health()["downgrades"]
+    seen = [(e["component"], e["from_tier"], e["to_tier"], e["reason"]) for e in got]
+    require(seen == list(expected), f"{phase}: the health ledger recorded {json.dumps(got)}")
+    resilience.reset()
+
+
+def native_kill_switch_events(n: int) -> list:
+    """What ``SKETCHES_TPU_NATIVE=0`` records each time a phase turns it on."""
+    return [("native", "native", "python", "disabled via SKETCHES_TPU_NATIVE=0")] * n
+
+
+def expect_raise(exc, fn, what: str):
+    """Run ``fn``; it must raise ``exc``, which is returned."""
+    try:
+        fn()
+    except exc as e:
+        return e
+    raise SmokeFailure(f"{what}: no {exc.__name__} raised")
+
+
+def _ledger_steps() -> list:
+    from sketches_tpu_torch import resilience
+
+    return [(e["component"], e["from_tier"], e["to_tier"])
+            for e in resilience.health()["downgrades"]]
+
+
+def _mixed_batch(gen, n, device):
+    import torch
+
+    v = torch.empty((n, BATCH), device=device).log_normal_(0.0, 2.0, generator=gen)
+    return torch.where(torch.rand(v.shape, device=device, generator=gen) < 0.4, -v, v)
+
+
+def _ladder_walk(device) -> dict:
+    """``pallas.lowering`` armed once for each kernel tier in turn on the
+    1M x 512 mixed-sign facade: each answer on the next tier equals the
+    plain facade's bit for bit; then ``pallas.ingest`` once on a fifth
+    batch, replayed on the plain path."""
+    import torch
+
+    from sketches_tpu_torch import BatchedDDSketch, batched, faults, kernels, resilience
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 91)
+    sk = BatchedDDSketch(n_streams=N_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS,
+                         device=device)
+    ref = BatchedDDSketch(n_streams=N_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS,
+                          engine="plain", device=device)
+    abs_sum = torch.zeros(N_STREAMS, dtype=torch.float64, device=device)
+    kernels.reset_launch_counts()
+    for _ in range(N_BATCHES):
+        v = _mixed_batch(gen, N_STREAMS, device)
+        abs_sum += v.abs().sum(-1, dtype=torch.float64)
+        sk.add(v)
+        ref.add(v)
+        del v
+    want_tier, want = ref.get_quantile_values_resolved(QS)
+    tier0, got0 = sk.get_quantile_values_resolved(QS)
+    require(tier0 == "overlap", f"the walk starts on {tier0!r}, not 'overlap'")
+    require(_same_answers(got0, want), "overlap differs from the plain facade")
+    require_ledger("ladder walk (before arming)")
+    walk = []
+    for armed, nxt in LADDER_WALK:
+        faults.arm(faults.PALLAS_LOWERING, tier=armed, times=1)
+        tier, got = sk.get_quantile_values_resolved(QS)
+        torch.cuda.synchronize()
+        require(faults.stats()[faults.PALLAS_LOWERING][1] == 1,
+                f"the armed {armed} fault did not fire")
+        faults.disarm()
+        require(tier == nxt, f"with {armed} failing the facade answered on {tier!r}, not {nxt!r}")
+        require(_same_answers(got, want),
+                f"the {tier} answer differs from the plain facade's ({want_tier})")
+        walk.append(tier)
+    steps = _ledger_steps()
+    require(steps == [("batched.query", a, b) for a, b in LADDER_WALK],
+            f"the ledger holds {steps}")
+    require(sorted(sk._query_disabled) == ["overlap", "tiles", "windowed", "wxla"],
+            f"persistent demotions {sorted(sk._query_disabled)}")
+    launches = kernels.launch_counts()
+    resilience.reset()
+
+    # Each tier's query, timed on a facade sharing the walked state.
+    twin = BatchedDDSketch(N_STREAMS, spec=sk.spec, state=sk.state, device=device)
+    tier_ms = {}
+    for tier, excl in TIER_EXCLUSIONS.items():
+        got_tier, got = twin.get_quantile_values_resolved(QS, disabled_tiers=excl)
+        require(got_tier == tier, f"timing: {excl} resolved {got_tier!r}, not {tier!r}")
+        require(_same_answers(got, want), f"timing: {tier} differs from the plain facade")
+        tier_ms[tier] = event_ms(lambda e=excl: twin.get_quantile_values_resolved(
+            QS, disabled_tiers=e))
+    del twin
+
+    # The ingest demotion: one fault, the batch replayed on the plain path.
+    v = _mixed_batch(gen, N_STREAMS, device)
+    abs_sum += v.abs().sum(-1, dtype=torch.float64)
+    before = kernels.ingest_histogram.launches
+    faults.arm(faults.PALLAS_INGEST, times=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sk.add(v)
+    torch.cuda.synchronize()
+    demoted_add_ms = (time.perf_counter() - t0) * 1e3
+    require(faults.stats()[faults.PALLAS_INGEST] == (1, 1), "the ingest fault did not fire once")
+    faults.disarm()
+    ref.add(v)
+    del v
+    require(kernels.ingest_histogram.launches == before,
+            "the demoted batch launched the ingest kernel")
+    require(_ledger_steps() == [("batched.ingest", "kernel", "plain")],
+            f"the ledger holds {_ledger_steps()} after the ingest fault")
+    require(not sk._kernel_ingest, "the facade kept the ingest kernel")
+    for f in batched.LEAVES:
+        a, b = getattr(sk.state, f), getattr(ref.state, f)
+        if f == "sum":
+            require(bool(((a - b).abs() <= 1e-5 * abs_sum).all()),
+                    "sum after the ingest demotion differs from the plain twin")
+        else:
+            require(torch.equal(a, b), f"leaf {f} after the ingest demotion differs from the"
+                                       " plain twin")
+    resilience.reset()
+    del sk, ref
+    torch.cuda.empty_cache()
+    return {"tiers": [tier0] + walk, "tier_query_ms": tier_ms, "launches": launches,
+            "ingest_demoted_add_ms": demoted_add_ms}
+
+
+def _distributed_walk(device) -> dict:
+    """The same walk on ``DistributedDDSketch`` over two value shards on the
+    card, down to its ``xla`` floor (K2), against the plain engine."""
+    import torch
+
+    from sketches_tpu_torch import faults, kernels, resilience
+    from sketches_tpu_torch.parallel import DistributedDDSketch, SketchMesh
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 92)
+    mesh = SketchMesh(devices=[device, device])
+    dist = DistributedDDSketch(N_STREAMS, mesh=mesh, relative_accuracy=ALPHA, n_bins=N_BINS)
+    ref = DistributedDDSketch(N_STREAMS, mesh=mesh, relative_accuracy=ALPHA, n_bins=N_BINS,
+                              engine="plain")
+    kernels.reset_launch_counts()
+    for _ in range(N_BATCHES):
+        v = _mixed_batch(gen, N_STREAMS, device)
+        dist.add(v)
+        ref.add(v)
+        del v
+    _, want = ref.get_quantile_values_resolved(QS)
+    del ref
+    torch.cuda.empty_cache()
+    tier0, got = dist.get_quantile_values_resolved(QS)
+    require(tier0 == "overlap" and _same_answers(got, want),
+            f"distributed walk: the default route ({tier0}) differs from the plain engine")
+    walk = []
+    for armed, nxt in LADDER_WALK:
+        faults.arm(faults.PALLAS_LOWERING, tier=armed, times=1)
+        tier, got = dist.get_quantile_values_resolved(QS)
+        torch.cuda.synchronize()
+        faults.disarm()
+        require(tier == nxt, f"distributed: with {armed} failing it answered on {tier!r}")
+        require(_same_answers(got, want), f"distributed: the {tier} answer differs from the"
+                                          " plain engine's")
+        walk.append(tier)
+    steps = _ledger_steps()
+    require(steps == [("distributed.query", a, b) for a, b in LADDER_WALK],
+            f"the distributed ledger holds {steps}")
+    launches = kernels.launch_counts()
+    require(launches["fused_quantile"] == 1, "the distributed floor did not launch K2 once")
+    floor_ms = event_ms(lambda: dist.get_quantile_values(QS))
+    resilience.reset()
+    del dist
+    torch.cuda.empty_cache()
+    return {"tiers": [tier0] + walk, "floor_query_ms": floor_ms, "launches": launches}
+
+
+def _flip_material_bit(state, stream: int):
+    """One bin of ``stream`` with mass, and a flip of its bit 30 (the top
+    exponent bit: the mass becomes tiny or infinite, never a rounding)."""
+    k = int(state.bins_pos[stream].argmax())
+    return (0, stream, k, 30)
+
+
+def _armed_integrity(device) -> dict:
+    """The integrity layer armed in raise mode at 262,144 x 512."""
+    import tempfile
+    import zipfile
+
+    import torch
+
+    from sketches_tpu_torch import (
+        BatchedDDSketch,
+        batched,
+        checkpoint,
+        faults,
+        integrity,
+        resilience,
+    )
+    from sketches_tpu_torch.checkpoint import _npz_bytes
+    from sketches_tpu_torch.parallel import DistributedDDSketch, SketchMesh
+    from sketches_tpu_torch.resilience import IntegrityError, InjectedFault
+
+    n = WIRE_STREAMS
+    gen = torch.Generator(device=device).manual_seed(SEED + 93)
+    a = BatchedDDSketch(n, relative_accuracy=ALPHA, n_bins=N_BINS, device=device)
+    b = BatchedDDSketch(n, relative_accuracy=ALPHA, n_bins=N_BINS, device=device)
+    mesh = SketchMesh(devices=[device, device])
+    dist = DistributedDDSketch(n, mesh=mesh, relative_accuracy=ALPHA, n_bins=N_BINS)
+    for _ in range(2):
+        for sk in (a, b, dist):
+            sk.add(_mixed_batch(gen, n, device))
+    out = {}
+    integrity.arm("raise")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fp = integrity.fingerprint(a.spec, a.state)
+        out["fingerprint_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clean = integrity.check_state(a.spec, a.state)
+        out["check_state_s"] = time.perf_counter() - t0
+        require(not clean and fp.shape == (n,) and bool(np.isfinite(fp).all()),
+                "the clean state fails its own check")
+
+        # A clean merge and a clean fold pass the armed seams.
+        t0 = time.perf_counter()
+        a.merge(b)
+        torch.cuda.synchronize()
+        out["armed_merge_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dist.merged_state()
+        out["armed_fold_s"] = time.perf_counter() - t0
+
+        # One flipped bin in an operand: refused at the merge, by stream.
+        s = SEED % n
+        flip = _flip_material_bit(b.state, s)
+        bad = BatchedDDSketch(n, spec=b.spec, state=faults.apply_state_bitflips(b.state, [flip]),
+                              device=device)
+        before = a.state.count.clone()
+        err = expect_raise(IntegrityError, lambda: a.merge(bad), "a flipped operand bin")
+        require(err.report.seam == "merge.operand" and err.report.indices == [s],
+                f"the merge refused at {err.report.seam} on streams {err.report.indices}")
+        require(integrity.check_state(b.spec, bad.state).indices == [s],
+                "check_state does not name the flipped stream")
+        require(torch.equal(a.state.count, before), "the refused merge changed the state")
+        del bad
+
+        # repair rewrites a desynced count / neg_total / tile_sums.
+        st = a.state
+        broken = batched.SketchState(**{f: getattr(st, f).clone() for f in batched.LEAVES})
+        broken.count[1] += 5
+        broken.neg_total[2] += 3
+        broken.tile_sums[3, 0] += 7
+        found = integrity.check_state(a.spec, broken)
+        require(found.indices == [1, 2, 3], f"check_state found {found.counters}")
+        t0 = time.perf_counter()
+        fixed, repairs = integrity.repair(a.spec, broken)
+        out["repair_s"] = time.perf_counter() - t0
+        require(sorted(repairs.counters) == ["count", "neg_total", "tile_sums"],
+                f"repair rewrote {repairs.counters}")
+        diff = _leaves_equal(fixed, st, batched.LEAVES)
+        require(not diff and fixed.device == st.device, f"the repaired state differs on {diff}")
+        del broken, fixed
+
+        # A checkpoint carries __fingerprint__ and verifies it on restore.
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            path = Path(tmp) / "armed.npz"
+            t0 = time.perf_counter()
+            checkpoint.save(str(path), a)
+            out["armed_save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = checkpoint.restore(str(path), device=device)
+            out["armed_restore_s"] = time.perf_counter() - t0
+            require(not _leaves_equal(back.state, a.state, batched.LEAVES),
+                    "the armed restore differs")
+            with zipfile.ZipFile(path) as z:
+                require("__fingerprint__.npy" in z.namelist(),
+                        "the armed checkpoint has no __fingerprint__")
+            del back
+            path.unlink()
+            # A file whose fingerprint member was altered (the first 4,096
+            # streams: rewriting the whole archive is host time, not a check).
+            small = Path(tmp) / "doctored.npz"
+            sub = BatchedDDSketch(WIRE_HOST_SAMPLE, spec=a.spec, device=device,
+                                  state=a.state.map(lambda x: x[:WIRE_HOST_SAMPLE].clone()))
+            checkpoint.save(str(small), sub)
+            with np.load(small) as z:
+                members = {k: np.asarray(z[k]) for k in z.files}
+            s_small = s % WIRE_HOST_SAMPLE
+            members["__fingerprint__"][s_small] += 1.0
+            small.write_bytes(_npz_bytes(members))
+            err = expect_raise(IntegrityError,
+                               lambda: checkpoint.restore(str(small), device=device),
+                               "a doctored __fingerprint__")
+            require(err.report.indices == [s_small],
+                    f"the doctored file failed on {err.report.indices}")
+
+        # merge_partial with a dead shard: the dropped mass, exactly.
+        faults.arm(faults.MESH_SHARD, shards=(1,))
+        survived, rep = dist.merge_partial()
+        faults.disarm()
+        dead_count = dist.partials.count[1].double().cpu().numpy()
+        require(rep.dead_shards == [1] and np.array_equal(rep.dropped_count, dead_count),
+                "merge_partial's dropped mass is not the dead partial's count")
+        del survived
+
+        # A torn reshard leaves the fleet's answers bit-identical.
+        tier, q0 = dist.get_quantile_values_resolved(QS)
+        faults.arm(faults.RESHARD_TORN, times=1)
+        expect_raise(InjectedFault, lambda: dist.reshard(mesh=SketchMesh(devices=[device])),
+                     "reshard.torn")
+        faults.disarm()
+        tier1, q1 = dist.get_quantile_values_resolved(QS)
+        require(tier1 == tier and _same_answers(q0, q1), "the torn reshard changed the answers")
+
+        # A clean reshard carries matching fingerprints across.
+        t0 = time.perf_counter()
+        new, rep = dist.reshard(mesh=SketchMesh(devices=[device]))
+        out["armed_reshard_s"] = time.perf_counter() - t0
+        require(rep.exact and rep.fingerprints_match is True,
+                f"reshard: exact {rep.exact}, fingerprints_match {rep.fingerprints_match}")
+        del new
+        out["violations_counted"] = resilience.health()["counters"].get("integrity.violations")
+    finally:
+        faults.disarm()
+        integrity.disarm()
+        integrity.reset()
+        resilience.reset()
+    del a, b, dist
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_robustness(device, disarmed: dict) -> dict:
+    """The robustness layer on the card: the query ladder walk and the ingest
+    demotion at 1,048,576 x 512, the distributed walk down to K2, the armed
+    integrity checks at 262,144 x 512, and the disarmed layer's cost on the
+    positive path (this run's main-path times beside the baseline's)."""
+    from sketches_tpu_torch import resilience
+
+    resilience.reset()
+    t0 = time.perf_counter()
+    out = {"batched": _ladder_walk(device)}
+    out["distributed"] = _distributed_walk(device)
+    out["armed_integrity"] = _armed_integrity(device)
+    out["disarmed"] = {
+        "facade_add_ms": disarmed["facade_add_ms"],
+        "overlap_query_ms": disarmed["facade_query_ms"],
+        "baseline_facade_add_ms": BASELINE_ADD_MS,
+        "baseline_overlap_query_ms": BASELINE_OVERLAP_QUERY_MS,
+        "note": "positive main path, this run; the baseline from PERF.md section 5, recorded"
+                " before the robustness layer on the same card model; a record, not a gate",
+    }
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: out["batched"]["launches"][k] + out["distributed"]["launches"][k]
+                       for k in out["batched"]["launches"]}
+    require(resilience.health()["downgrades"] == [], "the robustness phase left the ledger dirty")
+    emit("robustness", **out)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1846,22 +2250,31 @@ def main(argv=None) -> int:
     ingest_others = {k: t["sk_ingest"] for k, t in trees.items()}
     overlap_others = {k: t["sk_overlap"] for k, t in trees.items()}
     quantile_others = {k: t["sk_quantile"] for k, t in trees.items()}
+    require_ledger("build")
     errs = phase_kernels_vs_plain(device)
+    require_ledger("kernels_vs_plain")
     phase_host_tier(device)
+    # The device-flush tier is reached through the native kill switch.
+    require_ledger("host_tier", native_kill_switch_events(1))
 
     pos = phase_main_path(device, "positive", 0.0, "windowed")
     t_win = time_query(device, pos["facade"], "windowed", rate)
     t_over = time_query(device, pos["facade"], "overlap", rate, others=overlap_others)
+    require_ledger("main_path_positive")
     mixed = phase_main_path(device, "mixed_sign", 0.4, "tiles")
     t_tiles = time_query(device, mixed["facade"], "tiles", rate)
     t_over_mixed = time_query(device, mixed["facade"], "overlap", rate, others=overlap_others)
     t_full = time_query(device, mixed["facade"], "xla", rate, others=quantile_others)
+    require_ledger("main_path_mixed_sign")
     wire = phase_wire(device, {"positive": pos.pop("facade"), "mixed_sign": mixed.pop("facade")})
     pinned = wire.pop("pinned_facade")
+    # The pure-Python decode is reached through the native kill switch.
+    require_ledger("wire", native_kill_switch_events(1))
     torch.cuda.empty_cache()
     t_full_2048 = phase_wide_state(device, rate, quantile_others)
     torch.cuda.empty_cache()
     t_ingest = time_ingest(device, rate, ingest_others)
+    require_ledger("times")
     emit("times", card=card["smi"], ingest=t_ingest, windowed=t_win, tiles=t_tiles,
          overlap=t_over, overlap_mixed=t_over_mixed, fused_quantile=t_full,
          fused_quantile_2048=t_full_2048,
@@ -1875,15 +2288,21 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats(device)
     dist = phase_distributed(device)
     dist.pop("facade")
+    require_ledger("distributed")
     torch.cuda.empty_cache()
     ckpt = phase_checkpoint(device, pinned, opts.checkpoint_writers)
+    require_ledger("checkpoint")
     del pinned
     torch.cuda.empty_cache()
     backends = phase_backends(device)
+    require_ledger("backends")
+    torch.cuda.empty_cache()
+    robust = phase_robustness(device, pos)
     torch.cuda.empty_cache()
 
     def launched(name):
-        return sum(path["launches"][name] for path in (pos, mixed, dist, wire, ckpt, backends))
+        return sum(path["launches"][name]
+                   for path in (pos, mixed, dist, wire, ckpt, backends, robust))
 
     src = "sketches_tpu_torch/csrc/"
     rows = [

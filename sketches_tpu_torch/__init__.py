@@ -16,12 +16,31 @@ uniform-collapse ``AdaptiveDDSketch`` and the moment-summary
 ``MomentDDSketch`` on the same seams, with the JAX package's
 ``SketchPayload`` wire envelope.
 
+The robustness layer is the JAX package's too: the kill-switch registry
+(``analysis.registry``), the health ledger and demotion ladder
+(``resilience``), deterministic fault injection (``faults``) and
+self-verifying state with fingerprints bit-equal to the JAX package's
+(``integrity``), all off by default and armed by the same environment
+switches.
+
 This package imports torch and numpy only; it never imports JAX or the
 ``sketches_tpu`` package, and protobuf only on the wire paths that need
 message objects.
 """
 
-from sketches_tpu_torch import backends, checkpoint, convert, kernels, native, parallel, pb
+from sketches_tpu_torch import (
+    analysis,
+    backends,
+    checkpoint,
+    convert,
+    faults,
+    integrity,
+    kernels,
+    native,
+    parallel,
+    pb,
+    resilience,
+)
 from sketches_tpu_torch.backends.moment import MomentDDSketch
 from sketches_tpu_torch.backends.uniform import AdaptiveDDSketch
 from sketches_tpu_torch.batched import BatchedDDSketch, SketchSpec, SketchState
@@ -32,6 +51,7 @@ from sketches_tpu_torch.ddsketch import (
     LogCollapsingLowestDenseDDSketch,
     TorchDDSketch,
 )
+from sketches_tpu_torch.integrity import IntegrityReport
 from sketches_tpu_torch.mapping import (
     CubicallyInterpolatedMapping,
     KeyMapping,
@@ -44,8 +64,14 @@ from sketches_tpu_torch.parallel import DistributedDDSketch, SketchMesh
 from sketches_tpu_torch.resilience import (
     BlobTooLarge,
     CheckpointCorrupt,
+    DeadlineExceeded,
     EngineUnavailable,
+    FabricUnavailable,
+    InjectedFault,
+    IntegrityError,
     QuarantineReport,
+    ReplicaStale,
+    ServeOverload,
     ShardLossError,
     SketchError,
     SketchValueError,
@@ -82,12 +108,23 @@ __all__ = [
     "WireDecodeError",
     "BlobTooLarge",
     "CheckpointCorrupt",
+    "IntegrityError",
+    "InjectedFault",
+    "ServeOverload",
+    "DeadlineExceeded",
+    "ReplicaStale",
+    "FabricUnavailable",
     "QuarantineReport",
+    "IntegrityReport",
+    "analysis",
     "backends",
     "checkpoint",
     "convert",
+    "faults",
+    "integrity",
     "kernels",
     "native",
     "parallel",
     "pb",
+    "resilience",
 ]

@@ -35,6 +35,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sketches_tpu_torch import faults, integrity, resilience
 from sketches_tpu_torch.batched import DEFAULT_REL_ACC, SketchSpec, resolve_device
 from sketches_tpu_torch.mapping import zero_threshold
 from sketches_tpu_torch.resilience import (
@@ -232,9 +233,11 @@ def psum_merge(spec: SketchSpec, mstates: Sequence[MomentState], n_hosts: int = 
 
 def fold_hosts(spec: SketchSpec, mstates: Sequence[MomentState], reachable=None):
     """Cross-host fold of per-host moment partials -> ``(folded state,
-    ShardLossReport)``: unreachable hosts are folded around, their mass
-    accounted in the report; no host reachable raises ``ShardLossError``;
-    an empty or shape-mismatched list raises ``SketchValueError``."""
+    ShardLossReport)``: unreachable hosts (``reachable``, or the armed
+    ``dcn.partition`` fault site when it is None) are folded around, their
+    mass accounted in the report and counted (``dcn.partitions``); no host
+    reachable raises ``ShardLossError``; an empty or shape-mismatched list
+    raises ``SketchValueError``."""
     n_hosts = len(mstates)
     if n_hosts == 0:
         raise SketchValueError("fold_hosts needs at least one host state")
@@ -243,12 +246,15 @@ def fold_hosts(spec: SketchSpec, mstates: Sequence[MomentState], reachable=None)
         raise SketchValueError(f"fold_hosts needs equal-shape host states; got {shapes}")
     if reachable is None:
         reach = np.ones((n_hosts,), bool)
+        part = faults.partitioned_hosts(n_hosts) if faults._ACTIVE else ()
+        if part:
+            reach[list(part)] = False
     else:
         reach = np.asarray(reachable, bool).reshape(-1)
         if reach.shape[0] != n_hosts:
             raise SketchValueError(f"reachable mask length {reach.shape[0]} != {n_hosts} hosts")
     if not reach.any():
-        raise ShardLossError(f"all {n_hosts} hosts unreachable; nothing to fold")
+        raise ShardLossError(f"all {n_hosts} hosts unreachable across DCN; nothing to fold")
     live = [st for st, r in zip(mstates, reach) if r]
     folded = live[0]
     for st in live[1:]:
@@ -259,6 +265,8 @@ def fold_hosts(spec: SketchSpec, mstates: Sequence[MomentState], reachable=None)
         surviving_count=counts[reach].sum(0),
         dropped_count=counts[~reach].sum(0),
     )
+    if not reach.all():
+        resilience.bump("dcn.partitions", int((~reach).sum()))
     return folded, report
 
 
@@ -541,7 +549,15 @@ class MomentDDSketch:
             raise UnequalSketchParametersError(
                 "Cannot merge two moment sketches with different specs"
             )
-        self._state = merge(self.spec, self._state, other._state.map(lambda x: x.to(self.device)))
+        theirs = other._state.map(lambda x: x.to(self.device))
+        _fp_pre = None
+        if integrity._ACTIVE:
+            _fp_pre = integrity.fingerprint(self.spec, self._state) + integrity.fingerprint(
+                other.spec, theirs
+            )
+        self._state = merge(self.spec, self._state, theirs)
+        if _fp_pre is not None:
+            integrity.verify_moment_merge(self.spec, self._state, _fp_pre, seam="moment.merge")
         return self
 
     def mergeable(self, other) -> bool:

@@ -45,13 +45,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from sketches_tpu_torch import batched, parallel
+from sketches_tpu_torch import batched, integrity, parallel
+from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.batched import (
     BatchedDDSketch,
     SketchSpec,
@@ -90,15 +90,15 @@ __all__ = [
     "fold_hosts",
 ]
 
-#: The collapse kill switch, read with the JAX package's convention: on
-#: unless set to the literal "0".
-ADAPTIVE_ENV = "SKETCHES_TPU_ADAPTIVE"
+#: The collapse kill switch (``analysis/registry.py``), read with the JAX
+#: package's convention: on unless set to the literal "0".
+ADAPTIVE_ENV = registry.ADAPTIVE.name
 
 
 def adaptive_enabled() -> bool:
     """Whether a uniform collapse may run (``SKETCHES_TPU_ADAPTIVE`` is not
     ``"0"``); switched off, every collapse trigger raises ``SpecError``."""
-    return os.environ.get(ADAPTIVE_ENV, "1") != "0"
+    return registry.enabled(registry.ADAPTIVE)
 
 
 @dataclasses.dataclass
@@ -702,12 +702,21 @@ class AdaptiveDDSketch:
                     f" {torch.nonzero(deepened)[:, 0].tolist()[:8]} but"
                     f" {ADAPTIVE_ENV}=0: refusing to degrade alpha"
                 )
+        # Guarded integrity seam on the level-aligned bases: collapse
+        # changes content, so the accounting starts after alignment.
+        _ipre = (
+            integrity.premerge(self.spec, mine.base, theirs.base)
+            if integrity._ACTIVE
+            else None
+        )
         inner = self._inner
         inner.state = mine.base
         inner._stream_op(functools.partial(batched._merge_aligned_body, self.spec), theirs.base)
         inner._invalidate_plans()
         self._level = target
         self._any_level = self._any_level or other._any_level or bool((target > 0).any())
+        if _ipre is not None:
+            integrity.postmerge(self.spec, inner.state, _ipre, seam="adaptive.merge")
         self._trigger_collapsed = self._collapsed_host()
         return self
 

@@ -15,6 +15,15 @@ stateful facade: it centres each stream's window on its first batch, sends
 tier exactly as the JAX facade does (``kernels.choose_query_engine``, with
 the overlap engine on unless ``SKETCHES_TPU_OVERLAP=0``).
 
+Failures degrade instead of crashing, as in the JAX package: a query tier
+that fails (or an armed ``pallas.lowering`` fault) demotes the facade down
+``overlap -> tiles -> windowed -> wxla -> xla``, an ingest kernel failure
+(or an armed ``pallas.ingest`` fault) moves it to the plain ingest for
+good, and each step is recorded in ``resilience.health()``.  On CUDA
+tensors only an armed fault steps down: a real kernel error raises, so no
+kernel is replaced by its plain version on the card
+(``resilience.survivable``).  With the integrity layer armed, ``merge`` fingerprints its operands and its result.
+
 PyTorch runs eagerly, so nothing here is jitted.  Where the JAX facade
 donates its state to a jitted chunk op, the port updates the state's
 tensors in place, chunk by chunk (``BatchedDDSketch._stream_op``).
@@ -29,6 +38,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from sketches_tpu_torch import faults, integrity, resilience
 from sketches_tpu_torch.mapping import KeyMapping, mapping_from_name, zero_threshold
 from sketches_tpu_torch.resilience import (
     SketchValueError,
@@ -771,13 +781,20 @@ class BatchedDDSketch:
     a CUDA device), ``plain`` never takes it.  On a CPU device the kernel
     path runs each kernel's plain version, so routing is the same on both.
     Resolved query tiers keep the JAX names: ``overlap``, ``tiles``,
-    ``windowed``, ``wxla`` and ``xla``.  Failures raise; there is no
-    demotion ladder yet.
+    ``windowed``, ``wxla`` and ``xla``.
 
     Failure modes: invalid construction, an unknown engine, or no CUDA
     device without ``device="cpu"`` raise ``SpecError``; merging unequal
     specs raises ``UnequalSketchParametersError``; empty streams and
-    out-of-range quantiles answer NaN.
+    out-of-range quantiles answer NaN.  A query tier that fails demotes
+    this facade to the next tier for good (``resilience.QUERY_LADDER``,
+    recorded as a ``batched.query`` downgrade) and retries; the ``xla``
+    floor re-raises.  On the card only an armed fault steps down; a real
+    kernel error raises.  A failed ingest kernel moves the facade to the plain
+    ingest for good (a ``batched.ingest`` downgrade, ``kernel -> plain``)
+    and replays the rest of the batch exactly; if the plain path fails
+    too, ``EngineUnavailable`` is raised.  Armed integrity checks raise
+    ``IntegrityError`` at ``merge``.
     """
 
     def __init__(
@@ -827,6 +844,10 @@ class BatchedDDSketch:
         self._pending_recenter_mask: Optional[np.ndarray] = None
         self._policy_collapsed = np.zeros((n_streams,), np.float64)
         self._policy_binned = np.zeros((n_streams,), np.float64)
+        # The demotion ladder's persistent state (resilience.QUERY_LADDER).
+        self._query_disabled: set = set()
+        self._health_component = "batched"
+        self._rows_done = 0
 
     # -- ingest --------------------------------------------------------------
     def _add_recentering(self, st, values, weights, mask):
@@ -875,7 +896,33 @@ class BatchedDDSketch:
             and kernels.supports(self.spec, self.n_streams, values.shape[-1])
             and not (self.spec.bins_integer and weights is not None)
         ):
-            self._stream_op(functools.partial(kernels.add, self.spec), values, weights)
+            self._rows_done = 0
+            try:
+                if faults._ACTIVE:
+                    faults.inject(faults.PALLAS_INGEST)
+                self._stream_op(functools.partial(kernels.add, self.spec), values, weights)
+            except Exception as e:
+                # The ingest kernel is lost: this facade takes the plain
+                # path for good and replays the stream chunks the kernel
+                # did not write (each chunk is written only once its
+                # kernel call returned), so the replay is exact.  On the
+                # card only an armed fault is survived this way.
+                if not resilience.survivable(e, self.device.type == "cuda"):
+                    raise
+                self._kernel_ingest = False
+                resilience.record_downgrade(
+                    f"{self._health_component}.ingest", "kernel", "plain", repr(e)
+                )
+                try:
+                    self._stream_op(
+                        functools.partial(add, self.spec), values, weights,
+                        start=self._rows_done,
+                    )
+                except Exception as e2:
+                    raise resilience.EngineUnavailable(
+                        "ingest failed on both the kernel and the plain path;"
+                        " state may be partial"
+                    ) from e2
         else:
             self._stream_op(functools.partial(add, self.spec), values, weights)
         self._invalidate_plans()
@@ -887,27 +934,32 @@ class BatchedDDSketch:
             raise SketchValueError("weights must be non-negative (0 = padding)")
         return self.add(values, weights)
 
-    def _stream_op(self, body, *args) -> None:
+    def _stream_op(self, body, *args, start: int = 0) -> None:
         """``state <- body(state, *args)``, chunked over streams when large.
 
         Chunked runs write each chunk's result into the state's tensors in
         place (the JAX facade donates its state for the same reason): peak
-        memory stays one chunk's temporaries above the state itself.
+        memory stays one chunk's temporaries above the state itself.  Rows
+        before ``start`` are left alone; ``self._rows_done`` counts the
+        rows written so far, so a failed run can be finished from there.
         """
         n = self.n_streams
         chunk = _stream_chunk(n, self.spec.n_bins)
+        self._rows_done = start
         if not chunk:
             self._state = body(self._state, *args)
+            self._rows_done = n
             return
         st = self._state
-        for start in range(0, n, chunk):
-            end = min(start + chunk, n)
+        for lo in range(start, n, chunk):
+            hi = min(lo + chunk, n)
             out = body(
-                _slice_streams(st, n, start, end),
-                *(_slice_streams(a, n, start, end) for a in args),
+                _slice_streams(st, n, lo, hi),
+                *(_slice_streams(a, n, lo, hi) for a in args),
             )
             for f in LEAVES:
-                getattr(st, f)[start:end].copy_(getattr(out, f))
+                getattr(st, f)[lo:hi].copy_(getattr(out, f))
+            self._rows_done = hi
 
     def _invalidate_plans(self) -> None:
         self._window_plan = None
@@ -917,12 +969,14 @@ class BatchedDDSketch:
     def _query_choice(self, qs_tuple: tuple, disabled: frozenset = frozenset()):
         """The query dispatch -> ``(tier, fn)``: ``overlap``/``tiles``/
         ``windowed`` on the kernel path (``kernels.choose_query_engine``;
-        overlap while ``kernels.overlap_enabled()`` and the caller has not
-        disabled it), else ``wxla`` for 128-aligned windows, else ``xla``.
-        Each plan costs one small host fetch after a state mutation and is
-        cached."""
+        overlap while ``kernels.overlap_enabled()`` and neither the caller
+        nor the demotion ladder has disabled it), else ``wxla`` for
+        128-aligned windows, else ``xla``.  Each plan costs one small host
+        fetch after a state mutation and is cached."""
         from sketches_tpu_torch import kernels
 
+        if self._query_disabled:
+            disabled = self._query_disabled | disabled
         spec = self.spec
         if self._kernel_query and "windowed" not in disabled:
             if self._window_plan is None:
@@ -968,12 +1022,30 @@ class BatchedDDSketch:
         return "xla", functools.partial(quantile, spec)
 
     def _run_query(self, qs_tuple: tuple, disabled: frozenset = frozenset()):
-        tier, fn = self._query_choice(qs_tuple, disabled)
+        """Dispatch a query down the tier ladder -> ``(tier, values)``.
+
+        A failing tier (or an armed ``pallas.lowering`` fault) demotes this
+        facade to the next tier, recorded in ``resilience.health()``, and
+        the query retries there (``resilience.demote_query``); the ``xla``
+        floor re-raises, and so does a real kernel error on the card.  Queries do
+        not mutate the state, so a retry is always sound.
+        """
         qs = self._qs_tensors.get(qs_tuple)
         if qs is None:
             qs = torch.tensor(qs_tuple, dtype=torch.float32, device=self.device)
             self._qs_tensors[qs_tuple] = qs
-        return tier, fn(self.state, qs)
+        while True:
+            tier, fn = self._query_choice(qs_tuple, disabled)
+            try:
+                if faults._ACTIVE:
+                    faults.inject(faults.PALLAS_LOWERING, tier=tier)
+                return tier, fn(self.state, qs)
+            except Exception as e:
+                if not resilience.demote_query(
+                    self._health_component, self._query_disabled, tier, e,
+                    self.device.type == "cuda",
+                ):
+                    raise
 
     def get_quantile_value(self, quantile: float) -> torch.Tensor:
         """Per-stream value at ``quantile`` -> ``[n_streams]`` (NaN if empty)."""
@@ -988,7 +1060,7 @@ class BatchedDDSketch:
     ):
         """Fused multi-quantile that also names the tier that answered ->
         ``(tier, [n_streams, Q])``; ``disabled_tiers`` excludes tiers for
-        this call only."""
+        this call only, on top of the facade's own demotions."""
         return self._run_query(
             tuple(float(q) for q in quantiles), frozenset(disabled_tiers)
         )
@@ -1003,7 +1075,16 @@ class BatchedDDSketch:
             raise UnequalSketchParametersError(
                 "Cannot merge two batched sketches with different specs"
             )
+        # Guarded integrity seam: fingerprint the operands before the
+        # in-place merge, verify the result against them after.
+        _ipre = (
+            integrity.premerge(self.spec, self.state, other.state)
+            if integrity._ACTIVE
+            else None
+        )
         self._stream_op(functools.partial(_merge_aligned_body, self.spec), other.state)
+        if _ipre is not None:
+            integrity.postmerge(self.spec, self.state, _ipre, seam="batched.merge")
         self._invalidate_plans()
         if self._auto_recenter_pending and bool((other.state.count > 0).any()):
             self._auto_recenter_pending = False
@@ -1108,6 +1189,9 @@ class BatchedDDSketch:
         new._policy_collapsed = self._policy_collapsed.copy()
         new._policy_binned = self._policy_binned.copy()
         new._policy_stale = self._policy_stale
+        # A demoted tier stays demoted in the copy (the failure is a
+        # property of the environment, not of the instance).
+        new._query_disabled = set(self._query_disabled)
         return new
 
     def __repr__(self) -> str:

@@ -22,10 +22,20 @@ Durability contract:
   and the cause.  Checkpoints without a checksum member still restore;
   they skip the content check.
 
+* **Verified content (integrity armed).**  ``save_state`` refuses a state
+  that fails ``integrity.verify_state`` and stores the per-stream content
+  fingerprint as a ``__fingerprint__`` member; an armed ``restore_state``
+  checks the restored state and compares its fingerprint with that member
+  (``IntegrityError`` on a mismatch, distinct from ``CheckpointCorrupt``,
+  which covers the archive's own validation).  The member is the JAX
+  package's, so an armed checkpoint of either package verifies in the
+  other.
+* **Fault site.**  An armed ``checkpoint.write`` fault truncates the bytes
+  (a torn write reaching ``path``) or raises before the rename (the
+  previous checkpoint survives).
+
 Not ported yet: windowed ring checkpoints (``save_windowed`` /
-``restore_windowed``, ROADMAP A10), and the integrity layer's per-stream
-fingerprint (ROADMAP A9): a ``__fingerprint__`` member, which an armed JAX
-``integrity`` writes, is read past and never verified here.
+``restore_windowed``, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from sketches_tpu_torch import faults, integrity
 from sketches_tpu_torch.backends.moment import FIELDS as MOMENT_FIELDS
 from sketches_tpu_torch.backends.moment import MomentState
 from sketches_tpu_torch.batched import (
@@ -181,20 +192,36 @@ def _npz_bytes(members: dict) -> bytes:
 
 def save_state(path: str, spec: SketchSpec, state: SketchState) -> None:
     """Write spec + state to ``path`` (npz; compressed, checksummed,
-    atomically renamed into place).  Non-dense specs raise ``SpecError``."""
+    atomically renamed into place).  A state whose type disagrees with
+    ``spec.backend`` raises ``SpecError``; with the integrity layer armed a
+    corrupted state is refused (``IntegrityError``) and the content
+    fingerprint rides along as ``__fingerprint__``."""
+    if integrity._ACTIVE:
+        integrity.verify_state(spec, state, seam="checkpoint.save")
     arrays = _state_arrays(spec, state)
     spec_json = _spec_json(spec)
+    extra = {}
+    if integrity._ACTIVE:
+        # Per-stream content fingerprint (sha256 covers the bytes, this
+        # the content), dispatched per backend state type.
+        extra["__fingerprint__"] = integrity.fingerprint(spec, state)
     # Serialize to memory first so the bytes reach disk in one write; the
     # temp file + rename below closes the torn-write window.
     data = _npz_bytes(
         {
             "__spec__": np.frombuffer(spec_json.encode(), np.uint8),
             "__checksum__": np.frombuffer(_digest(spec_json, arrays).encode(), np.uint8),
+            **extra,
             **arrays,
         }
     )
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
+        if faults._ACTIVE:
+            # "truncate" models a torn write reaching the final path;
+            # "raise" a crash before the rename (the previous checkpoint
+            # survives either way).
+            data = faults.inject(faults.CHECKPOINT_WRITE, payload=data)
         with open(tmp, "wb") as f:
             f.write(data)
             f.flush()
@@ -212,21 +239,30 @@ def restore_state(path: str, device=None) -> Tuple[SketchSpec, SketchState]:
     Returns the spec's backend state (``SketchState``, ``AdaptiveState``
     or ``MomentState``).  Raises :class:`CheckpointCorrupt` on any
     integrity failure (torn file, bad archive, checksum mismatch, missing
-    members); a missing file stays ``FileNotFoundError``.
+    members); a missing file stays ``FileNotFoundError``.  With the
+    integrity layer armed the restored state is checked, and compared with
+    the ``__fingerprint__`` member when the file has one (``IntegrityError``
+    or a report, per the mode).
     """
     dev = resolve_device(device)
     try:
-        return _restore_state_inner(path, dev)
+        spec, state, stored_fp = _restore_state_inner(path, dev)
     except (FileNotFoundError, CheckpointCorrupt, SpecError):
         raise
     except Exception as e:
         raise CheckpointCorrupt(
             f"checkpoint {path!r} failed to restore ({type(e).__name__}: {e})"
         ) from e
+    if integrity._ACTIVE:
+        integrity.verify_restore(spec, state, stored_fp, seam="checkpoint.restore")
+    return spec, state
 
 
-def _restore_state_inner(path: str, device) -> Tuple[SketchSpec, SketchState]:
+def _restore_state_inner(path: str, device):
     with np.load(path) as data:
+        stored_fp = (
+            np.asarray(data["__fingerprint__"]) if "__fingerprint__" in data.files else None
+        )
         meta_json = bytes(data["__spec__"]).decode()
         spec = _spec_from_meta(json.loads(meta_json))
         fields = _fields_of(spec)
@@ -248,7 +284,7 @@ def _restore_state_inner(path: str, device) -> Tuple[SketchSpec, SketchState]:
                 f"checkpoint {path!r} ({spec.backend} backend) is missing state"
                 f" members {missing}"
             )
-        return spec, _arrays_to_backend_state(spec, arrays, device)
+        return spec, _arrays_to_backend_state(spec, arrays, device), stored_fp
     # Checkpoints from before per-stream windows carry no offsets: every
     # stream was on the spec default.
     if "key_offset" not in arrays:
@@ -262,7 +298,7 @@ def _restore_state_inner(path: str, device) -> Tuple[SketchSpec, SketchState]:
         arrays["neg_total"] = bn.sum(axis=-1).astype(bn.dtype)
     if "tile_sums" not in arrays:
         arrays["tile_sums"] = tile_sums_np(bp, bn).astype(bp.dtype)
-    return spec, _arrays_to_backend_state(spec, arrays, device)
+    return spec, _arrays_to_backend_state(spec, arrays, device), stored_fp
 
 
 def save(

@@ -27,6 +27,7 @@ import typing
 import numpy as np
 import torch
 
+from sketches_tpu_torch import integrity
 from sketches_tpu_torch.mapping import KeyMapping, LogarithmicMapping, zero_threshold
 from sketches_tpu_torch.resilience import (
     SketchValueError,
@@ -175,6 +176,10 @@ class BaseDDSketch:
         flush = getattr(sketch, "_flush", None)
         if flush is not None:
             flush()
+        if integrity._ACTIVE:
+            # Guarded seam: a corrupted operand is caught before it is
+            # folded into self (IntegrityError or a report, per the mode).
+            integrity.verify(sketch, seam="host.merge.operand")
         if sketch._count == 0:
             return
 
@@ -192,6 +197,8 @@ class BaseDDSketch:
             self._min = sketch._min
         if sketch._max > self._max:
             self._max = sketch._max
+        if integrity._ACTIVE:
+            integrity.verify(self, seam="host.merge")
 
     def mergeable(self, other: "BaseDDSketch") -> bool:
         """Two sketches are mergeable iff their mappings are identical (same
@@ -530,7 +537,17 @@ class TorchDDSketch(BaseDDSketch):
             # Cross-backend: pack the pure-Python sketch's bins into a
             # 1-stream state (out-of-window mass clamps to the edge bins).
             other_state = batched.from_host_sketches(self._spec, [sketch], self._device)
+        _ipre = (
+            integrity.premerge(self._spec, self._state, other_state)
+            if integrity._ACTIVE
+            else None
+        )
         self._state = batched.merge_aligned(self._spec, self._state, other_state)
+        if _ipre is not None:
+            # Guarded seam: fingerprint / conservation check of the merged
+            # state against the operand snapshot (the JAX package's seam
+            # name).
+            integrity.postmerge(self._spec, self._state, _ipre, seam="jax.merge")
         # The merge populated the device state; a pending auto-centre would
         # recentre away from the merged mass.  The merged-in window is now
         # the established one: pin the native buffer's window to it.

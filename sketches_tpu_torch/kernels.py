@@ -22,21 +22,21 @@ else touches it.
 The plans (``plan_window``, ``plan_state_window``, ``plan_tile_query``,
 ``tile_query_eligible``, ``choose_query_engine``) are the JAX package's,
 so the port routes a query to the same tier for the same state.  The
-overlap switch, ``SKETCHES_TPU_OVERLAP`` (:func:`overlap_enabled`), is the
-one environment variable the device tier reads (the host tier reads
-``SKETCHES_TPU_NATIVE``, in ``native.py``).
+overlap switch, ``SKETCHES_TPU_OVERLAP`` (:func:`overlap_enabled`, declared
+in ``analysis/registry.py`` with every other switch), is the one
+environment variable the kernels read.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
 from typing import Optional
 
 import torch
 
 from sketches_tpu_torch import _build
+from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.batched import (
     SketchSpec,
     SketchState,
@@ -765,9 +765,9 @@ def tile_query_eligible(spec: SketchSpec, q_total: int, window_plan) -> bool:
     return q_total <= 8 and spec.n_tiles >= 2 and spec.n_bins % LO == 0 and n_w * w_t > 1
 
 
-#: The overlap engine's switch, read with the JAX package's convention: on
-#: unless set to the literal "0".
-OVERLAP_ENV = "SKETCHES_TPU_OVERLAP"
+#: The overlap engine's switch (``analysis/registry.py``), read with the
+#: JAX package's convention: on unless set to the literal "0".
+OVERLAP_ENV = registry.OVERLAP.name
 
 
 def overlap_enabled() -> bool:
@@ -777,7 +777,7 @@ def overlap_enabled() -> bool:
     every pick the overlap engine would take goes down the tiles/windowed
     ladder instead (the engines answer identically).
     """
-    return os.environ.get(OVERLAP_ENV, "1") != "0"
+    return registry.enabled(registry.OVERLAP)
 
 
 def choose_query_engine(window_plan, tile_plan, overlap_ok: bool = False) -> str:

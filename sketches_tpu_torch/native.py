@@ -14,11 +14,14 @@ written to a temporary name and renamed into place, so concurrent
 processes never load a half-written file.  (``native/``'s own Makefile
 target is the JAX package's library and is never written from here.)
 
-A failed build or load is retried a bounded number of times, then the
-process degrades to the pure-Python tier: ``available()`` answers False,
-``wire_scanner()`` None, and ``status()`` says which tier runs and why.
-``SKETCHES_TPU_NATIVE=0`` forces that degradation (the tests use it to
-drive the device-flush and pure-Python wire tiers).
+A failed build or load (or an armed ``native.load`` fault) is retried a
+bounded number of times with a capped, deterministically jittered backoff,
+then the process degrades to the pure-Python tier: ``available()`` answers
+False, ``wire_scanner()`` None, ``status()`` says which tier runs and why,
+and the health ledger records a ``native`` downgrade ``native -> python``
+(a library without the wire ABI records a ``native.wire`` one).
+``SKETCHES_TPU_NATIVE=0`` forces that degradation, recorded the same way
+(the tests use it to drive the device-flush and pure-Python wire tiers).
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from sketches_tpu_torch import faults, resilience
 from sketches_tpu_torch._build import BUILD_DIR
+from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.resilience import (
     EngineUnavailable,
     SketchValueError,
@@ -57,9 +62,10 @@ __all__ = [
     "WIRE_ABI_VERSION",
 ]
 
-#: Environment kill switch: ``SKETCHES_TPU_NATIVE=0`` makes the native
-#: engine unavailable (pure-Python host tier), as in the JAX package.
-NATIVE_ENV = "SKETCHES_TPU_NATIVE"
+#: Environment kill switch (``analysis/registry.py``):
+#: ``SKETCHES_TPU_NATIVE=0`` makes the native engine unavailable
+#: (pure-Python host tier), as in the JAX package.
+NATIVE_ENV = registry.NATIVE.name
 
 NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 SOURCES = ("ddsketch_host.cpp", "ddsketch_wire.cpp")
@@ -127,16 +133,19 @@ def _degrade(reason: str) -> None:
 def _load() -> typing.Optional[ctypes.CDLL]:
     """Build (if needed) and load the library, with bounded retry.
 
-    A load that still fails degrades the process to the pure-Python host
-    tier; the outcome is cached (no rebuild per call) and recorded in
-    :func:`status`; :func:`reset` clears it.
+    Transient failures (injected or real) retry up to ``_MAX_LOAD_ATTEMPTS``
+    times; a load that still fails degrades the process to the pure-Python
+    host tier, recorded as a ``native -> python`` downgrade in
+    ``resilience.health()``.  The outcome is cached (no rebuild per call)
+    and shown by :func:`status`; :func:`reset` clears it.
     """
     global _lib, _wire_ok
     with _lock:
         if _lib is not None or _status["tier"] is not None:
             return _lib
-        if os.environ.get(NATIVE_ENV) == "0":
+        if not registry.enabled(registry.NATIVE):
             _degrade(f"disabled via {NATIVE_ENV}=0")
+            resilience.record_downgrade("native", "native", "python", _status["reason"])
             return None
         last_error = None
         for attempt in range(_MAX_LOAD_ATTEMPTS):
@@ -146,8 +155,10 @@ def _load() -> typing.Optional[ctypes.CDLL]:
                     * _backoff_jitter(os.getpid(), attempt)
                 )
             try:
+                if faults._ACTIVE:
+                    faults.inject(faults.NATIVE_LOAD)
                 _lib = _bind(ctypes.CDLL(str(_build())))
-            except (OSError, subprocess.CalledProcessError) as e:
+            except (OSError, subprocess.CalledProcessError, resilience.InjectedFault) as e:
                 last_error = getattr(e, "stderr", None) or str(e)
                 continue
             _wire_ok = _bind_wire(_lib)
@@ -159,8 +170,13 @@ def _load() -> typing.Optional[ctypes.CDLL]:
                     " or symbols missing (stale or ABI-mismatched library)"
                 ),
             )
+            if not _wire_ok:
+                # The host engine loaded but the bulk wire scanner did not:
+                # the wire fast path degrades to the pure-Python walker.
+                resilience.record_downgrade("native.wire", "native", "python", _status["reason"])
             return _lib
         _degrade(f"load failed after {_MAX_LOAD_ATTEMPTS} attempts: {last_error}")
+        resilience.record_downgrade("native", "native", "python", _status["reason"])
         return None
 
 

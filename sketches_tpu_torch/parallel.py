@@ -19,8 +19,20 @@ one ``SketchState`` on its device:
 A device may appear more than once in a grid: the tests run meshes of
 ``["cpu"] * 8``, and two value shards can share one card.  Without an
 explicit device list a mesh takes every CUDA device and raises
-``SpecError`` where there is none.  Failures raise; the JAX package's
-fault sites, integrity fingerprints and telemetry are not ported.
+``SpecError`` where there is none.
+
+Robustness follows the JAX package: a failing query tier demotes the
+facade down the ladder (``resilience.QUERY_LADDER``, recorded as a
+``distributed.query`` downgrade; on the card only an armed fault steps
+down, a real kernel error raises); dead value shards and lost hosts (given
+as masks, or armed as the ``mesh.shard`` / ``mesh.host_loss`` fault sites)
+are folded around by ``merge_partial`` and ``reshard`` with the dropped
+mass itemized; ``fold_hosts`` folds around DCN-partitioned hosts; a torn
+``reshard`` (``reshard.torn``) raises and leaves the fleet intact.  With
+the integrity layer armed, every fold runs the fingerprint lane
+(``integrity.verify_fold``), ``merge`` fingerprints its operands and its
+result, and ``reshard`` carries fingerprints across the boundary.  The
+JAX package's telemetry is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from sketches_tpu_torch import kernels
+from sketches_tpu_torch import faults, integrity, kernels, resilience
+from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.batched import (
     LEAVES,
     BatchedDDSketch,
@@ -306,7 +319,9 @@ def fold_live_partials(spec: SketchSpec, partials: SketchState, live) -> SketchS
     """Fold a stacked ``[K, n_streams, ...]`` partials state over its shard
     axis, counting only the shards where ``live[k]`` is True.  Dead shards
     contribute the fold identities (zero mass, +-inf extrema, empty-span
-    sentinels), so the result is an exact sketch of the survivors."""
+    sentinels), so the result is an exact sketch of the survivors.  With
+    the integrity layer armed, the live partials' fingerprints must sum to
+    the fold's (``integrity.verify_fold``)."""
     dev = partials.device
     lv = torch.as_tensor(np.asarray(live, bool), device=dev)
     l2, l1 = lv[:, None, None], lv[:, None]
@@ -318,7 +333,7 @@ def fold_live_partials(spec: SketchSpec, partials: SketchState, live) -> SketchS
         return op(torch.where(l1, x, torch.full((), fill, dtype=x.dtype, device=dev)), 0)
 
     i32min = torch.iinfo(torch.int32).min
-    return SketchState(
+    out = SketchState(
         bins_pos=msum(partials.bins_pos, l2),
         bins_neg=msum(partials.bins_neg, l2),
         zero_count=msum(partials.zero_count, l1),
@@ -336,6 +351,11 @@ def fold_live_partials(spec: SketchSpec, partials: SketchState, live) -> SketchS
         neg_total=msum(partials.neg_total, l1),
         tile_sums=msum(partials.tile_sums, l2),
     )
+    if integrity._ACTIVE:
+        # Parallel checksum lane: a shard corrupted in flight fails here,
+        # at the fold, instead of being averaged into the answer.
+        integrity.verify_fold(spec, partials, out, live=live, seam="fold_live_partials")
+    return out
 
 
 def _stack(states: Sequence[SketchState], device) -> SketchState:
@@ -350,10 +370,15 @@ def fold_hosts(spec: SketchSpec, states, reachable=None):
 
     Windows are aligned first (per stream, onto the first reachable host
     holding binned mass), then the stack folds through
-    :func:`fold_live_partials` on the first reachable host's device.  An
-    unreachable host's mass is folded around and accounted in the report;
-    no host reachable raises ``ShardLossError``; an empty or
-    shape-mismatched ``states`` raises ``SketchValueError``.
+    :func:`fold_live_partials` on the first reachable host's device, so
+    the armed integrity layer verifies this fold too.  ``reachable`` is a
+    ``[n_hosts]`` bool mask; ``None`` derives it from the armed
+    ``dcn.partition`` fault site and defaults to all reachable.  An
+    unreachable host's mass is folded around and accounted in the report
+    (the ``dcn.partitions`` health counter and a ``distributed.dcn``
+    downgrade), never silently zeroed; no host reachable raises
+    ``ShardLossError``; an empty or shape-mismatched ``states`` raises
+    ``SketchValueError``.
     """
     n_hosts = len(states)
     if n_hosts == 0:
@@ -363,12 +388,15 @@ def fold_hosts(spec: SketchSpec, states, reachable=None):
         raise SketchValueError(f"fold_hosts needs equal-shape host states; got {shapes}")
     if reachable is None:
         reach = np.ones((n_hosts,), bool)
+        part = faults.partitioned_hosts(n_hosts) if faults._ACTIVE else ()
+        if part:
+            reach[list(part)] = False
     else:
         reach = np.asarray(reachable, bool).reshape(-1)
         if reach.shape[0] != n_hosts:
             raise SketchValueError(f"reachable mask length {reach.shape[0]} != {n_hosts} hosts")
     if not reach.any():
-        raise ShardLossError(f"all {n_hosts} hosts unreachable; nothing to fold")
+        raise ShardLossError(f"all {n_hosts} hosts unreachable across DCN; nothing to fold")
     live_idx = np.nonzero(reach)[0]
     dev = states[int(live_idx[0])].device
     offs = np.stack([st.key_offset.cpu().numpy() for st in states])
@@ -393,6 +421,15 @@ def fold_hosts(spec: SketchSpec, states, reachable=None):
         surviving_count=counts[reach].sum(0),
         dropped_count=counts[~reach].sum(0),
     )
+    if not reach.all():
+        resilience.bump("dcn.partitions", int((~reach).sum()))
+        resilience.record_downgrade(
+            "distributed.dcn",
+            f"{n_hosts} hosts",
+            f"{int(reach.sum())} hosts",
+            f"DCN partition at the cross-host fold: hosts {report.dead_shards}"
+            f" unreachable; dropped {report.total_dropped_fraction:.4f} of total mass",
+        )
     return folded, report
 
 
@@ -413,7 +450,9 @@ class DistributedDDSketch:
     ``windowed``, ``wxla``, ``xla``), planned over every stream shard's
     fold at the shard-local block width; on the kernel engine ``xla`` is
     ``kernels.fused_quantile``, else ``batched.quantile``.  Answers come
-    back on the mesh's first device.  Failures raise.
+    back on the mesh's first device.  A failing tier demotes the facade to
+    the next one for good (a ``distributed.query`` downgrade); the floor
+    re-raises, and so does a real kernel error on the card.
     """
 
     def __init__(
@@ -500,6 +539,9 @@ class DistributedDDSketch:
         self._policy_collapsed = np.zeros((n_streams,), np.float64)
         self._policy_binned = np.zeros((n_streams,), np.float64)
         self._policy_stale = False
+        # The demotion ladder's persistent state (resilience.QUERY_LADDER).
+        self._query_disabled: set = set()
+        self._health_component = "distributed"
 
     # -- ingest --------------------------------------------------------------
     def _local_add(self, st: SketchState, values, weights) -> SketchState:
@@ -603,16 +645,20 @@ class DistributedDDSketch:
 
     def merged_state(self) -> SketchState:
         """The folded ``[n_streams, n_bins]`` batch on the mesh's first
-        device (cached between mutations)."""
+        device (cached between mutations).  With the integrity layer armed
+        the fold runs the fingerprint lane (``integrity.verify_fold``)."""
         if self._merged is None:
             folds = self._shard_folds()
             dev = self._grid[0][0]
             if len(folds) == 1:
-                self._merged = folds[0]
+                merged = folds[0]
             else:
-                self._merged = SketchState(
+                merged = SketchState(
                     **{f: torch.cat([getattr(st, f).to(dev) for st in folds]) for f in LEAVES}
                 )
+            if integrity._ACTIVE:
+                integrity.verify_fold(self.spec, self.partials, merged, seam="distributed.fold")
+            self._merged = merged
         return self._merged
 
     def shard_partials(self) -> List[List[SketchState]]:
@@ -642,7 +688,10 @@ class DistributedDDSketch:
 
     def _query_choice(self, qs_tuple: tuple, disabled: frozenset = frozenset()):
         """Per-shard query dispatch -> ``(tier, fn)``, ``fn(state, qs)``
-        answering one stream shard's fold."""
+        answering one stream shard's fold; ``disabled`` adds to the
+        facade's own demotions."""
+        if self._query_disabled:
+            disabled = self._query_disabled | disabled
         spec = self.spec
         if self._kernel_query and "windowed" not in disabled:
             n_local = self._n_local_streams
@@ -682,12 +731,30 @@ class DistributedDDSketch:
         return qs
 
     def _run_query(self, qs_tuple: tuple, disabled: frozenset = frozenset()):
-        tier, fn = self._query_choice(qs_tuple, disabled)
-        outs = [fn(st, self._qs_on(qs_tuple, st.device)) for st in self._shard_folds()]
-        if len(outs) == 1:
-            return tier, outs[0]
-        dev = self._grid[0][0]
-        return tier, torch.cat([o.to(dev) for o in outs])
+        """Dispatch down the tier ladder -> ``(tier, values)``, demoting on
+        failure as ``BatchedDDSketch._run_query`` does (queries fold but
+        never mutate the partials, so a retry is always sound).  Armed, the
+        query first runs the fold lane once per mutation, as the JAX
+        facade's query does through ``merged_state``."""
+        if integrity._ACTIVE:
+            self.merged_state()
+        while True:
+            tier, fn = self._query_choice(qs_tuple, disabled)
+            try:
+                if faults._ACTIVE:
+                    faults.inject(faults.PALLAS_LOWERING, tier=tier)
+                outs = [fn(st, self._qs_on(qs_tuple, st.device)) for st in self._shard_folds()]
+            except Exception as e:
+                if not resilience.demote_query(
+                    self._health_component, self._query_disabled, tier, e,
+                    self._grid[0][0].type == "cuda",
+                ):
+                    raise
+                continue
+            if len(outs) == 1:
+                return tier, outs[0]
+            dev = self._grid[0][0]
+            return tier, torch.cat([o.to(dev) for o in outs])
 
     def get_quantile_value(self, q: float) -> torch.Tensor:
         """Per-stream value at ``q`` -> ``[n_streams]`` (NaN if empty)."""
@@ -729,6 +796,13 @@ class DistributedDDSketch:
             raise SpecError("merge needs operands on meshes of one shape; reshard one first")
         a_st = self.merged_state()
         b_st = other.merged_state()
+        # Guarded integrity seam on the folded states (the partials are
+        # covered by the fold lane).
+        _ipre = (
+            integrity.premerge(self.spec, a_st, b_st)
+            if integrity._ACTIVE
+            else None
+        )
         dev = a_st.device
         a_binned = (a_st.count - a_st.zero_count) > 0
         target = torch.where(a_binned, a_st.key_offset, b_st.key_offset.to(dev)).to(torch.int32)
@@ -739,6 +813,8 @@ class DistributedDDSketch:
             for r1, r2 in zip(mine, theirs)
         ]
         self._invalidate()
+        if _ipre is not None:
+            integrity.postmerge(self.spec, self.merged_state(), _ipre, seam="distributed.merge")
         if self._auto_recenter_pending and bool((b_st.count > 0).any()):
             self._auto_recenter_pending = False
         return self
@@ -796,11 +872,20 @@ class DistributedDDSketch:
         """Fold only the live value shards' partials -> ``(state,
         ShardLossReport)``: an exact sketch of the surviving mass, with the
         per-stream dropped mass.  ``live_mask`` is ``[n_value_shards]``
-        bool, all live by default; none live raises ``ShardLossError``."""
+        bool; ``None`` derives it from the armed ``mesh.shard`` fault site
+        and defaults to all live.  Dead shards are counted
+        (``mesh.dead_shards``) and recorded as a ``distributed.mesh``
+        downgrade; none live raises ``ShardLossError``."""
         k = self.n_value_shards
-        live = np.ones((k,), bool) if live_mask is None else np.asarray(live_mask, bool).reshape(-1)
-        if live.shape[0] != k:
-            raise SketchValueError(f"live_mask length {live.shape[0]} != n_value_shards {k}")
+        if live_mask is None:
+            live = np.ones((k,), bool)
+            dead = faults.dead_shards(k)
+            if dead:
+                live[list(dead)] = False
+        else:
+            live = np.asarray(live_mask, bool).reshape(-1)
+            if live.shape[0] != k:
+                raise SketchValueError(f"live_mask length {live.shape[0]} != n_value_shards {k}")
         if not live.any():
             raise ShardLossError(f"all {k} value shards marked dead; nothing to fold")
         partials = self.partials
@@ -810,7 +895,24 @@ class DistributedDDSketch:
         report = ShardLossReport(
             live=live, surviving_count=surviving, dropped_count=full_count - surviving
         )
+        if report.n_dead:
+            resilience.bump("mesh.dead_shards", report.n_dead)
+            resilience.record_downgrade(
+                f"{self._health_component}.mesh",
+                f"{k} value shards",
+                f"{int(live.sum())} value shards",
+                f"dead shards {report.dead_shards}; dropped"
+                f" {report.total_dropped_fraction:.4f} of total mass",
+            )
         return survived, report
+
+    def _host_shards(self, host: int) -> range:
+        """The contiguous value-shard indices owned by ``host`` (empty for
+        an out-of-range host index)."""
+        per = self.n_value_shards // max(self.n_hosts, 1)
+        if not 0 <= host < self.n_hosts:
+            return range(0)
+        return range(host * per, (host + 1) * per)
 
     def reshard(
         self,
@@ -823,9 +925,24 @@ class DistributedDDSketch:
     ):
         """Fold the surviving partials and rebuild the fleet on another mesh
         -> ``(new facade, ReshardReport)``.  The target is ``mesh`` or this
-        mesh's layout resized to ``n_devices``.  This facade is left as it
-        was.  Raises ``SpecError`` without a target, ``ShardLossError``
+        mesh's layout resized to ``n_devices``.
+
+        Dead capacity comes from an explicit ``live_mask``, the armed
+        ``mesh.shard`` fault site (dead value shards) and the armed
+        ``mesh.host_loss`` site (every value shard of a lost host), all
+        combined; the report itemizes the dropped mass per stream.  With
+        the integrity layer armed the report carries the survivors'
+        fingerprints and the regrown fold's, and the boundary is verified
+        (``integrity.verify_reshard``).  Atomic: a torn reshard (the
+        ``reshard.torn`` site) or any other failure raises and leaves this
+        facade as it was.  Raises ``SpecError`` when
+        ``SKETCHES_TPU_ELASTIC=0`` or without a target, ``ShardLossError``
         when no shard survives, ``SketchValueError`` on a bad mask."""
+        if not registry.enabled(registry.ELASTIC):
+            raise SpecError(
+                "elastic resharding disabled (SKETCHES_TPU_ELASTIC=0);"
+                " checkpoint and restore_distributed onto the new topology instead"
+            )
         k = self.n_value_shards
         live = np.ones((k,), bool)
         if live_mask is not None:
@@ -833,16 +950,33 @@ class DistributedDDSketch:
             if lm.shape[0] != k:
                 raise SketchValueError(f"live_mask length {lm.shape[0]} != n_value_shards {k}")
             live &= lm
+        hosts_down: tuple = ()
+        if faults._ACTIVE:
+            dead = faults.dead_shards(k)
+            if dead:
+                live[list(dead)] = False
+            hosts_down = faults.lost_hosts(self.n_hosts)
+            for h in hosts_down:
+                live[list(self._host_shards(h))] = False
         if not live.any():
             raise ShardLossError(f"all {k} value shards marked dead; nothing to regrow from")
         if mesh is None:
             if n_devices is None:
                 raise SpecError("reshard needs a target: mesh= or n_devices=")
             mesh = self.mesh.resized(n_devices)
+        # Mass accounting before anything moves, and (armed) the survivors'
+        # fingerprint lane: the boundary proof's left-hand side.
         partials = self.partials
         part_counts = partials.count.double().cpu().numpy()
+        fp_pre = None
+        if integrity._ACTIVE:
+            fp_pre = (integrity.fingerprint(self.spec, partials) * live[:, None]).sum(axis=0)
         folded = fold_live_partials(self.spec, partials, live)
         surviving = folded.count.double().cpu().numpy()
+        if faults._ACTIVE:
+            # Torn-reshard seam: dying between the survivor fold and the
+            # regrow must leave this fleet fully usable.
+            faults.inject(faults.RESHARD_TORN)
         new = DistributedDDSketch.from_merged_state(
             folded,
             self.spec,
@@ -851,6 +985,10 @@ class DistributedDDSketch:
             n_hosts=n_hosts,
         )
         new_count = new.merged_state().count.double().cpu().numpy()
+        fp_post = None
+        if integrity._ACTIVE:
+            fp_post = integrity.fingerprint(self.spec, new.merged_state())
+            integrity.verify_reshard(self.spec, fp_pre, new.merged_state(), seam="elastic.reshard")
         report = ReshardReport(
             live=live,
             from_devices=self.mesh.n_devices,
@@ -858,7 +996,23 @@ class DistributedDDSketch:
             surviving_count=surviving,
             dropped_count=part_counts[~live].sum(axis=0),
             exact=bool(np.array_equal(new_count, surviving, equal_nan=True)),
+            lost_hosts=tuple(int(h) for h in hosts_down),
+            fingerprint_pre=fp_pre,
+            fingerprint_post=fp_post,
         )
+        resilience.bump("elastic.reshards")
+        if report.n_dead:
+            resilience.bump("mesh.dead_shards", report.n_dead)
+            resilience.record_downgrade(
+                f"{self._health_component}.mesh",
+                f"{k} value shards",
+                f"{int(live.sum())} value shards",
+                f"reshard {report.from_devices}->{report.to_devices} devices; dead"
+                f" shards {report.dead_shards}; dropped"
+                f" {report.total_dropped_fraction:.4f} of total mass",
+            )
+        if hosts_down:
+            resilience.bump("mesh.host_losses", len(hosts_down))
         return new, report
 
     @classmethod

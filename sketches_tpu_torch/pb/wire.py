@@ -32,6 +32,13 @@ bytes, with the state read from and written to torch tensors.
 Mapping gates are shared with ``pb.proto.KeyMappingProto``: LINEAR foreign
 bytes refuse by default, unknown enum values raise, NONE/QUADRATIC/CUBIC
 decode unconditionally.
+
+Guarded seams, as in the JAX package: an armed ``wire.blob`` fault
+corrupts blobs per index before either decode driver sees them (the
+quarantine path must then catch them), quarantined blobs are counted in
+``resilience.health()`` (``wire.quarantined``, per kind too), and the
+armed integrity layer checks the state before it is encoded and after it
+is decoded.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from sketches_tpu_torch import faults, integrity, resilience
 from sketches_tpu_torch.batched import (
     SketchSpec,
     SketchState,
@@ -159,7 +167,13 @@ def state_to_bytes(spec: SketchSpec, state: SketchState) -> List[bytes]:
     """Serialize every stream -> wire bytes, byte-identical to the object
     bridge's ``to_proto(...).SerializeToString()`` (and to the JAX
     package's ``state_to_bytes`` on the same state).  Reads the state to
-    the host once: one copy each of the bins, zero counts and offsets."""
+    the host once: one copy each of the bins, zero counts and offsets.
+    With the integrity layer armed, a corrupted state is refused before it
+    is encoded (``IntegrityError`` or a report, per the mode)."""
+    if integrity._ACTIVE:
+        # The wire format carries no checksum slot, so the encode-side check
+        # is the last armed gate before the bytes leave the process.
+        integrity.verify_state(spec, state, seam="wire.encode")
     bins_pos, bins_neg, zero, koff = (
         getattr(state, f).cpu().numpy()
         for f in ("bins_pos", "bins_neg", "zero_count", "key_offset")
@@ -676,6 +690,10 @@ def _decode_batch_python(dec: "_Decoder", blobs, expected_mapping: bytes,
     zeros: list = []  # (stream, zeroCount) -- vector-assigned at the end
     templates: dict = {}  # blob length -> _Template
     for i, blob in enumerate(blobs):
+        if faults._ACTIVE:
+            # Injected blob corruption (deterministic per index): the
+            # quarantine path must then catch what it produces.
+            blob = faults.inject(faults.WIRE_BLOB, payload=blob, index=i)
         if max_blob_bytes is not None and len(blob) > max_blob_bytes:
             exc = BlobTooLarge(
                 f"blob {i}: {len(blob)} bytes exceeds"
@@ -745,6 +763,13 @@ def _decode_batch_native(scanner, dec: "_Decoder", blobs,
     """
     blob_list = list(blobs)
     n = len(blob_list)
+    if faults._ACTIVE:
+        # Corruption fires before packing, so the scanner sees exactly the
+        # bytes the pure-Python driver would.
+        blob_list = [
+            faults.inject(faults.WIRE_BLOB, payload=b, index=i)
+            for i, b in enumerate(blob_list)
+        ]
     status = np.zeros(n, np.uint8)
     if max_blob_bytes is not None:
         lens = np.fromiter((len(b) for b in blob_list), np.int64, n)
@@ -811,7 +836,9 @@ def bytes_to_state(
       describe.
 
     ``max_blob_bytes`` is the admission cap against oversized blobs
-    (``None`` = no cap); it applies in both error modes.
+    (``None`` = no cap); it applies in both error modes.  Quarantined blobs
+    are counted in ``resilience.health()``; with the integrity layer armed
+    the decoded state is checked (``IntegrityError`` or a report).
     """
     from sketches_tpu_torch import native
 
@@ -846,8 +873,14 @@ def bytes_to_state(
             assume_native_linear, report, max_blob_bytes,
         )
     state = dec.finish()
+    if integrity._ACTIVE:
+        integrity.verify_state(spec, state, seam="wire.decode")
     if report is None:
         return state
+    if report.n_quarantined:
+        resilience.bump("wire.quarantined", report.n_quarantined)
+        for kind, n in report.counters.items():
+            resilience.bump(f"wire.quarantined.{kind}", n)
     return state, report
 
 

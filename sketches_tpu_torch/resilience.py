@@ -1,18 +1,39 @@
-"""Error taxonomy of the PyTorch port (counterpart of ``sketches_tpu.resilience``).
+"""Resilience layer of the PyTorch port (counterpart of ``sketches_tpu.resilience``).
 
-The exception classes, the two reports of the distributed tier's
-shard-loss and reshard accounting, and the quarantine report of the bulk
-wire decode (``pb.wire.bytes_to_state(errors="quarantine")``).  The
-engine-health ledger and its demotion records follow with the robustness
-slice.  Class names, bases and
-fields match the JAX package's, so callers catch and read the same types
-from either.
+Every failure path is a degradation path, recorded:
+
+* **Error taxonomy** (:class:`SketchError` and friends): class names,
+  bases and fields are the JAX package's, so callers catch and read the
+  same types from either package.
+* **Health ledger** (:func:`record_downgrade` / :func:`bump` /
+  :func:`health`): the process-wide record of every degradation a
+  component took (a query tier demoted, the ingest kernel lost, the native
+  host tier lost, blobs quarantined, shards dead).  A downgrade is never
+  silent: a caller that survives a failure records it here.
+* **Reports** (:class:`QuarantineReport`, :class:`ShardLossReport`,
+  :class:`ReshardReport`): the accounting the quarantine decode
+  (``pb.wire.bytes_to_state(errors="quarantine")``), the lost-shard fold
+  (``parallel.DistributedDDSketch.merge_partial``) and ``reshard`` hand
+  back.
+
+Ladder semantics are the JAX package's: the query tiers degrade
+``overlap -> tiles -> windowed -> wxla -> xla`` (:data:`QUERY_LADDER`,
+:func:`demote_query_tier`); ingest degrades from the fused kernel to the
+plain path (the port's engine names, ``kernel -> plain``, where the JAX
+package writes ``pallas -> xla``); the host tier degrades
+``native -> python``.  Every tier computes the same answer.
+
+The ledger takes its timestamps from :func:`wall_time`.  The JAX package
+also mirrors each downgrade into its telemetry and tracing layers when
+they are armed; those layers are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -24,12 +45,27 @@ __all__ = [
     "WireDecodeError",
     "BlobTooLarge",
     "CheckpointCorrupt",
+    "IntegrityError",
     "EngineUnavailable",
     "ShardLossError",
+    "InjectedFault",
+    "ServeOverload",
+    "DeadlineExceeded",
+    "ReplicaStale",
+    "FabricUnavailable",
     "QuarantineRecord",
     "QuarantineReport",
     "ShardLossReport",
     "ReshardReport",
+    "DowngradeEvent",
+    "record_downgrade",
+    "bump",
+    "health",
+    "reset",
+    "QUERY_LADDER",
+    "demote_query_tier",
+    "survivable",
+    "demote_query",
 ]
 
 
@@ -67,6 +103,19 @@ class CheckpointCorrupt(SketchError):
     argument, and must not be swallowed by value-error handlers."""
 
 
+class IntegrityError(SketchError):
+    """Sketch state failed a self-verification: total-mass conservation,
+    bin non-negativity, derived-counter agreement, or a cross-boundary
+    fingerprint mismatch (``sketches_tpu_torch.integrity``).  Deliberately
+    not a ``ValueError``.  Carries the
+    :class:`~sketches_tpu_torch.integrity.IntegrityReport` as ``.report``
+    when raised by the integrity layer's armed policy."""
+
+    def __init__(self, message: str, report=None):
+        super().__init__(message)
+        self.report = report
+
+
 class EngineUnavailable(SketchError, RuntimeError):
     """An execution engine cannot be used: a kernel failed to build, load or
     launch.  Subclasses ``RuntimeError``."""
@@ -74,6 +123,191 @@ class EngineUnavailable(SketchError, RuntimeError):
 
 class ShardLossError(SketchError):
     """Raised on unrecoverable shard loss: no live shard remains to fold."""
+
+
+class InjectedFault(SketchError):
+    """The deterministic failure raised by an armed ``faults`` site."""
+
+
+class ServeOverload(SketchError):
+    """A serving request was shed at admission (global queue at depth,
+    tenant over quota, or an armed ``serve.queue_overflow`` fault).
+    ``reason`` is the stable shed class (``queue_depth`` /
+    ``tenant_quota`` / ``injected``).  Raised by the serving tier, which
+    the port has not reached yet."""
+
+    def __init__(self, message: str, reason: str = "", tenant: str = ""):
+        super().__init__(message)
+        self.reason = reason
+        self.tenant = tenant
+
+
+class DeadlineExceeded(SketchError):
+    """A serving request's deadline budget was spent before any dispatch
+    could answer it (serving tier)."""
+
+
+class ReplicaStale(SketchError):
+    """A serve-fabric read replica refused to answer: its content
+    fingerprint no longer matches the primary's ledgered state, or its
+    sync lag exceeds the tenant's staleness bound.  ``reason`` is the
+    stable refusal class (``fingerprint`` / ``staleness``)."""
+
+    def __init__(self, message: str, reason: str = "", tenant: str = ""):
+        super().__init__(message)
+        self.reason = reason
+        self.tenant = tenant
+
+
+class FabricUnavailable(SketchError):
+    """No serveable copy of a fabric tenant remains: unavailability is
+    declared, never improvised around."""
+
+
+# ---------------------------------------------------------------------------
+# Health ledger
+# ---------------------------------------------------------------------------
+
+
+def wall_time() -> float:
+    """The ledger's clock: wall seconds (``time.time()``).  Timestamps are
+    operator-facing; nothing branches on them."""
+    return time.time()
+
+
+@dataclasses.dataclass(frozen=True)
+class DowngradeEvent:
+    """One recorded degradation: ``component`` moved ``from_tier`` ->
+    ``to_tier`` because ``reason``."""
+
+    component: str
+    from_tier: str
+    to_tier: str
+    reason: str
+    time: float
+
+
+_lock = threading.Lock()
+_events: List[DowngradeEvent] = []
+_tiers: Dict[str, str] = {}
+_counters: Dict[str, float] = {}
+_events_dropped = 0
+
+#: Ledger ring bound: events past the cap are dropped (newest first) and
+#: counted in ``health()["downgrades_dropped"]``; the per-component
+#: ``tiers`` map and the counters keep aggregating regardless.
+_MAX_EVENTS = 65536
+
+
+def record_downgrade(
+    component: str, from_tier: str, to_tier: str, reason: str = ""
+) -> DowngradeEvent:
+    """Record one degradation step into the process-wide health ledger.
+
+    Never fails the caller: a downgrade is already a failure being
+    survived.  ``reason`` is cut to 500 characters.
+    """
+    ev = DowngradeEvent(component, from_tier, to_tier, str(reason)[:500], wall_time())
+    global _events_dropped
+    with _lock:
+        if len(_events) < _MAX_EVENTS:
+            _events.append(ev)
+        else:
+            _events_dropped += 1
+        _tiers[component] = to_tier
+        _counters["downgrades"] = _counters.get("downgrades", 0) + 1
+    # Telemetry and tracing mirrors of the event go here with slice A9(b).
+    return ev
+
+
+def bump(name: str, n: float = 1) -> None:
+    """Increment a named health counter (quarantined blobs, fired faults,
+    dead shards, ...)."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def health() -> dict:
+    """Snapshot of the ledger: ``{"tiers": {component: current tier},
+    "counters": {...}, "downgrades": [event dicts, oldest first],
+    "downgrades_dropped": n}``.  Empty maps are the healthy steady state.
+    The snapshot is a deep copy; mutating it does not touch the ledger."""
+    with _lock:
+        return {
+            "tiers": dict(_tiers),
+            "counters": dict(_counters),
+            "downgrades": [dataclasses.asdict(e) for e in _events],
+            "downgrades_dropped": _events_dropped,
+        }
+
+
+def reset() -> None:
+    """Clear the ledger (test isolation hook)."""
+    global _events_dropped
+    with _lock:
+        _events.clear()
+        _tiers.clear()
+        _counters.clear()
+        _events_dropped = 0
+
+
+# ---------------------------------------------------------------------------
+# Engine ladder bookkeeping
+# ---------------------------------------------------------------------------
+
+#: The query-engine degradation order, fastest first.  ``xla`` (the full
+#: quantile) is the floor and may not fail over further.
+QUERY_LADDER = ("overlap", "tiles", "windowed", "wxla", "xla")
+
+
+def demote_query_tier(disabled: set, tier: str) -> Optional[str]:
+    """Disable ``tier`` in a facade's ladder state -> the next tier label.
+
+    Returns ``None`` when ``tier`` is the floor (the caller must re-raise).
+    A ``windowed`` failure disables the whole kernel query family
+    (``overlap``, ``tiles`` and ``windowed``), as in the JAX package.
+    """
+    if tier == "overlap":
+        disabled.add("overlap")
+        return "tiles"
+    if tier == "tiles":
+        disabled.add("tiles")
+        return "windowed"
+    if tier == "windowed":
+        disabled.update(("overlap", "tiles", "windowed"))
+        return "wxla"
+    if tier == "wxla":
+        disabled.add("wxla")
+        return "xla"
+    return None
+
+
+def survivable(exc: BaseException, on_card: bool) -> bool:
+    """Whether a facade may step down its ladder after ``exc``.
+
+    On the card only an armed fault site's :class:`InjectedFault` is
+    survived: a real kernel build or launch error raises, so no kernel is
+    ever replaced by its plain version on CUDA tensors.  Off the card every
+    tier is plain PyTorch already, and any failure steps down as in the JAX
+    package.
+    """
+    return not on_card or isinstance(exc, InjectedFault)
+
+
+def demote_query(
+    component: str, disabled: set, tier: str, exc: BaseException, on_card: bool
+) -> bool:
+    """One query-ladder step for a facade: disable ``tier`` in ``disabled``
+    and record ``component.query tier -> next`` -> True when the caller may
+    retry on the next tier; False (re-raise) at the floor, or on the card
+    for anything but an injected fault (:func:`survivable`)."""
+    if not survivable(exc, on_card):
+        return False
+    nxt = demote_query_tier(disabled, tier)
+    if nxt is None:
+        return False
+    record_downgrade(f"{component}.query", tier, nxt, repr(exc))
+    return True
 
 
 @dataclasses.dataclass
@@ -87,7 +321,7 @@ class ShardLossReport:
 
     live: np.ndarray  # [K] bool
     surviving_count: np.ndarray  # [N]
-    dropped_count: np.ndarray  # [N]
+    dropped_count: Optional[np.ndarray]  # [N], None if unknowable
 
     @property
     def dead_shards(self) -> List[int]:
@@ -98,13 +332,17 @@ class ShardLossReport:
         return int((~self.live).sum())
 
     @property
-    def dropped_fraction(self) -> np.ndarray:
+    def dropped_fraction(self) -> Optional[np.ndarray]:
         """Per-stream fraction of total mass lost with the dead shards."""
+        if self.dropped_count is None:
+            return None
         total = self.surviving_count + self.dropped_count
         return self.dropped_count / np.maximum(total, 1.0)
 
     @property
-    def total_dropped_fraction(self) -> float:
+    def total_dropped_fraction(self) -> Optional[float]:
+        if self.dropped_count is None:
+            return None
         total = float(self.surviving_count.sum() + self.dropped_count.sum())
         return float(self.dropped_count.sum()) / max(total, 1.0)
 
@@ -115,8 +353,13 @@ class ReshardReport:
 
     The regrown fleet holds exactly the surviving mass: ``surviving_count``
     must reappear bit-identically in the new fleet's fold (``exact``), and
-    the mass lost with dead shards is itemized per stream in
-    ``dropped_count``.
+    the mass lost with dead shards and lost hosts is itemized per stream in
+    ``dropped_count``.  ``fingerprint_pre`` / ``fingerprint_post`` carry
+    the integrity layer's merge-additive content fingerprints across the
+    boundary when it is armed (``None`` disarmed: an absent proof, not a
+    passed one); ``fingerprints_match`` is then the verdict.  A reshard
+    that raises (torn, all dead) produces no report and leaves the
+    original fleet untouched.
     """
 
     live: np.ndarray  # [K] bool, over the old mesh's value shards
@@ -125,6 +368,9 @@ class ReshardReport:
     surviving_count: np.ndarray  # [N]
     dropped_count: np.ndarray  # [N]
     exact: bool
+    lost_hosts: Tuple[int, ...] = ()
+    fingerprint_pre: Optional[np.ndarray] = None  # [N], armed only
+    fingerprint_post: Optional[np.ndarray] = None  # [N], armed only
 
     @property
     def dead_shards(self) -> List[int]:
@@ -142,6 +388,16 @@ class ReshardReport:
     def total_dropped_fraction(self) -> float:
         total = float(self.surviving_count.sum() + self.dropped_count.sum())
         return self.total_dropped / max(total, 1.0)
+
+    @property
+    def fingerprints_match(self) -> Optional[bool]:
+        """Cross-boundary fingerprint verdict (None when integrity was
+        disarmed and no fingerprints were computed)."""
+        if self.fingerprint_pre is None or self.fingerprint_post is None:
+            return None
+        return bool(
+            np.allclose(self.fingerprint_post, self.fingerprint_pre, rtol=1e-5, atol=1e-3)
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from sketches_tpu_torch import batched, convert, kernels
+from sketches_tpu_torch import batched, convert, kernels, resilience
 from sketches_tpu_torch.resilience import SketchValueError, SpecError
 from torch_edge_rows import EDGE_QS, edge_leaves
 
@@ -40,6 +40,47 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda", 0)
+
+
+def _unexpected_downgrades() -> list:
+    """The ledger's downgrades but the native kill switch's, which a caller
+    turns on deliberately and which is recorded as such."""
+    return [e for e in resilience.health()["downgrades"]
+            if not e["reason"].startswith("disabled via SKETCHES_TPU_NATIVE=0")]
+
+
+#: Un-armed card tests that left a downgrade behind (name -> events).
+_LEAKED: dict = {}
+
+
+@pytest.fixture
+def armed():
+    """Marks a test that arms a fault site: the ledger is its to fill, and
+    it is cleared (faults disarmed) before and after the test."""
+    from sketches_tpu_torch import faults
+
+    faults.disarm()
+    resilience.reset()
+    yield
+    faults.disarm()
+    resilience.reset()
+
+
+@pytest.fixture(autouse=True)
+def _no_downgrade_unless_armed(request):
+    """Every test that arms nothing must leave no new downgrade: on the card
+    a kernel is never replaced by its plain version without a trace."""
+    if "armed" in request.fixturenames:
+        yield
+        return
+    before = len(_unexpected_downgrades())
+    yield
+    if "dev" not in request.fixturenames or not torch.cuda.is_available():
+        return
+    left = _unexpected_downgrades()[before:]
+    if left:
+        _LEAKED[request.node.name] = left
+    assert left == [], f"{request.node.name} recorded a downgrade un-armed: {left}"
 
 
 def _values(n, s, seed, device):
@@ -565,3 +606,150 @@ def test_weighted_rank_boundary_kernels_equal_their_plain_versions(dev):
     for name, (got, ref) in pairs.items():
         assert torch.equal(got, ref), name
         assert got[0, 0].item() == np.float32(2.6642716), name
+
+
+def _mixed_facades(dev, n=1024, seed=31):
+    r = np.random.RandomState(seed)
+    sk = batched.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512, device=dev)
+    plain = batched.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512, device=dev,
+                                    engine="plain")
+    for _ in range(3):
+        v = (r.lognormal(0, 2, (n, 256)) * np.where(r.rand(n, 256) < 0.4, -1, 1)).astype(np.float32)
+        sk.add(v)
+        plain.add(v)
+    return sk, plain
+
+
+def test_ladder_walk_on_the_card_is_bit_equal_to_plain(dev, armed):
+    """``pallas.lowering`` armed once for each kernel tier in turn: the facade
+    answers on the next tier each time, bit for bit the plain facade's
+    answer, and the ledger holds the four ``batched.query`` steps."""
+    from sketches_tpu_torch import faults, parallel, resilience
+
+    qs = [0.5, 0.9, 0.99, 0.999]
+    sk, plain = _mixed_facades(dev)
+    want = plain.get_quantile_values(qs)
+    kernels.reset_launch_counts()
+    tiers = []
+    try:
+        for tier in ("overlap", "tiles", "windowed", "wxla"):
+            faults.arm(faults.PALLAS_LOWERING, tier=tier, times=1)
+            got_tier, got = sk.get_quantile_values_resolved(qs)
+            faults.disarm()
+            tiers.append(got_tier)
+            assert torch.equal(got, want), got_tier
+        assert tiers == ["tiles", "windowed", "wxla", "xla"]
+        assert [(e["component"], e["from_tier"], e["to_tier"])
+                for e in resilience.health()["downgrades"]] == [
+            ("batched.query", "overlap", "tiles"), ("batched.query", "tiles", "windowed"),
+            ("batched.query", "windowed", "wxla"), ("batched.query", "wxla", "xla")]
+        counts = kernels.launch_counts()
+        assert counts["fused_quantile_tiles"] == counts["fused_quantile_windowed"] == 1
+        assert counts["fused_quantile_tiles_overlap"] == 0  # injected before its launch
+        # The distributed facade down to its floor, K2.
+        resilience.reset()
+        mesh = parallel.SketchMesh(devices=[dev, dev])
+        r = np.random.RandomState(32)
+        dist = parallel.DistributedDDSketch(1024, mesh=mesh, relative_accuracy=0.01, n_bins=512)
+        ref = parallel.DistributedDDSketch(1024, mesh=mesh, relative_accuracy=0.01, n_bins=512,
+                                           engine="plain")
+        for _ in range(2):
+            v = (r.lognormal(0, 2, (1024, 256))
+                 * np.where(r.rand(1024, 256) < 0.4, -1, 1)).astype(np.float32)
+            dist.add(v)
+            ref.add(v)
+        faults.arm(faults.PALLAS_LOWERING, tier=("overlap", "tiles", "windowed", "wxla"))
+        kernels.reset_launch_counts()
+        tier, got = dist.get_quantile_values_resolved(qs)
+        faults.disarm()
+        assert tier == "xla" and kernels.launch_counts()["fused_quantile"] == 1
+        assert torch.equal(got, ref.get_quantile_values(qs))
+        assert len(resilience.health()["downgrades"]) == 4
+    finally:
+        faults.disarm()
+        resilience.reset()
+
+
+def test_ingest_demotion_on_the_card_replays_exactly(dev, armed):
+    from sketches_tpu_torch import faults, resilience
+
+    r = np.random.RandomState(33)
+    n = 1024
+    sk = batched.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512, device=dev)
+    plain = batched.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512, device=dev,
+                                    engine="plain")
+    vs = [r.lognormal(0, 2, (n, 256)).astype(np.float32) for _ in range(2)]
+    for s in (sk, plain):
+        s.add(vs[0])
+    try:
+        faults.arm(faults.PALLAS_INGEST, times=1)
+        sk.add(vs[1])
+        faults.disarm()
+        plain.add(vs[1])
+        assert [e["to_tier"] for e in resilience.health()["downgrades"]] == ["plain"]
+    finally:
+        faults.disarm()
+        resilience.reset()
+    for f in batched.LEAVES:
+        a, b = getattr(sk.state, f), getattr(plain.state, f)
+        if f == "sum":
+            assert torch.allclose(a, b, rtol=1e-5)
+        else:
+            assert torch.equal(a, b), f
+
+
+def test_state_bitflips_on_the_card_equal_the_cpu(dev, armed):
+    from sketches_tpu_torch import faults
+
+    sk, _ = _mixed_facades(dev, n=256, seed=34)
+    faults.arm(faults.STATE_BITFLIP, seed=5)
+    try:
+        flips = [faults.state_bitflips(256, 512)[0] for _ in range(12)] + [(0, 1, 2, 31)]
+    finally:
+        faults.disarm()
+    card = faults.apply_state_bitflips(sk.state, flips)
+    cpu = faults.apply_state_bitflips(sk.state.map(lambda t: t.cpu()), flips)
+    assert card.device == sk.state.device
+    for f in ("bins_pos", "bins_neg"):
+        assert torch.equal(getattr(card, f).cpu().view(torch.int32),
+                           getattr(cpu, f).view(torch.int32)), f
+        assert not torch.equal(getattr(card, f), getattr(sk.state, f)), f
+
+
+def test_kernel_errors_on_the_card_raise_and_never_demote(dev, monkeypatch):
+    """A real kernel failure on CUDA tensors (no fault armed) raises out of
+    both facades: neither steps down to a plain tier, and the ledger stays
+    empty (checked by ``_no_downgrade_unless_armed``)."""
+    from sketches_tpu_torch import parallel
+
+    def broken(*a, **k):
+        raise RuntimeError("launch failed")
+
+    qs = [0.5, 0.99]
+    sk, _ = _mixed_facades(dev, n=1024, seed=35)
+    mesh = parallel.SketchMesh(devices=[dev, dev])
+    dist = parallel.DistributedDDSketch(1024, mesh=mesh, relative_accuracy=0.01, n_bins=512)
+    r = np.random.RandomState(36)
+    dist.add((r.lognormal(0, 2, (1024, 256))
+              * np.where(r.rand(1024, 256) < 0.4, -1, 1)).astype(np.float32))
+    # Both facades answer on a kernel tier while the kernels work.
+    for facade in (sk, dist):
+        assert facade.get_quantile_values_resolved(qs)[0] in ("overlap", "tiles", "windowed")
+    for name in ("fused_quantile_tiles_overlap", "fused_quantile_tiles",
+                 "fused_quantile_windowed", "fused_quantile", "add"):
+        monkeypatch.setattr(kernels, name, broken)
+    for facade in (sk, dist):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            facade.get_quantile_values(qs)
+        assert facade._query_disabled == set()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sk.add(np.ones((1024, 256), np.float32))
+    assert sk._kernel_ingest
+
+
+def test_unarmed_kernel_tests_recorded_no_downgrade(dev):
+    """Runs last: no un-armed card test above left a downgrade behind.
+    Each was checked on its own as it ran (armed tests clear the ledger,
+    so the check cannot wait for the end)."""
+    assert _LEAKED == {}
+    assert _unexpected_downgrades() == []

@@ -42,7 +42,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "before = set(sys.modules)\n"
         "import sketches_tpu_torch\n"
         "from sketches_tpu_torch import _build, batched, convert, kernels, mapping\n"
-        "from sketches_tpu_torch import parallel, resilience\n"
+        "from sketches_tpu_torch import parallel, resilience, faults, integrity, analysis\n"
+        "from sketches_tpu_torch.analysis import registry\n"
         "from sketches_tpu_torch import checkpoint, ddsketch, native, pb, store\n"
         "from sketches_tpu_torch.pb import proto, wire\n"
         "import importlib.util\n"
