@@ -50,8 +50,8 @@ on the same traffic, and both ``SketchPayload`` envelopes and checkpoints
 at 262,144 streams.  ``kernels_vs_plain`` also holds K2-K5 to their plain
 versions on the smallest weighted rank boundary.
 
-Then the ``robustness`` phase (``phase_robustness``), the only one that
-arms anything: ``pallas.lowering`` armed once for each kernel tier in turn
+Then the ``robustness`` phase (``phase_robustness``), the first that arms
+anything: ``pallas.lowering`` armed once for each kernel tier in turn
 on a 1M x 512 mixed-sign facade, each answer on the next tier equal to the
 plain facade's bit for bit (``overlap -> tiles -> windowed -> wxla ->
 xla``, four ``batched.query`` steps in the health ledger), each tier's
@@ -63,6 +63,22 @@ clean merge and fold, a flipped bin refused at the merge by stream,
 one refused), ``merge_partial`` with a dead shard, a torn and a clean
 ``reshard``.  It also prints the positive path's disarmed ``add`` and
 ``overlap`` query times beside those recorded before the layer existed.
+
+Then the ``observability`` phase (``phase_observability``): telemetry (and
+with it the flight recorder), profiling and the accuracy audit armed on
+the mixed-sign quick start at 1M x 512 on a pinned window (two batches,
+every one through K1; the default route and the ladder down to ``tiles``,
+``windowed`` and ``xla``) and on a two-shard ``DistributedDDSketch`` (two
+batches, the K2 floor).  Each device-clocked profiling row must be at
+least its kernel's time alone from the ``times`` line (the fold: its byte
+bound); the snapshot's counters, the Prometheus text, the Chrome trace's
+host and device tracks and ``merge_snapshots(s, s)`` are checked; a
+``pallas.lowering`` downgrade under a root trace must reach the ledger,
+the telemetry events and the flight recorder, and ``explain`` at least
+two causal events; the quick start's audits (real K5 queries) find no
+violation and a 128-bin facade fed lognormal(0, 6) rows reports collapse
+drift.  Disarmed again, facade ``add`` and the ``overlap`` query must come
+within 3% of the same run's numbers from before anything was armed.
 
 Every phase that arms nothing must leave ``resilience.health()`` without
 a downgrade (the host-tier and wire phases turn the native kill switch
@@ -2216,6 +2232,295 @@ def phase_robustness(device, disarmed: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The observability phase: telemetry, the flight recorder, profiling and the
+# accuracy audit armed on the mixed-sign quick start, then disarmed.
+# ---------------------------------------------------------------------------
+
+OBS_BATCHES = 2
+# The quick start's window for mixed traffic, pinned so that every batch
+# takes K1 (an auto-centred facade's first batch takes the plain recenter).
+OBS_KEY_OFFSET = -256
+OBS_WATCHED = tuple(range(8))
+OBS_COLLAPSE_STREAMS = 1 << 16
+OBS_COLLAPSE_SIGMA = 6.0
+# Disarmed facade add and overlap query against the same run's numbers
+# from before anything was armed.
+OBS_DISARMED_TOL = 0.03
+# One series line of the Prometheus text exposition, and the OpenMetrics
+# exemplar annotation a quantile line may carry after " # ".
+PROM_LINE = r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? -?[0-9.eE+-]+$"
+PROM_EXEMPLAR = r'^\{trace_id="[0-9a-f]{16}"\} [0-9.eE+-]+ [0-9.]+$'
+
+
+def _obs_checks_exports() -> tuple:
+    """Snapshot, Prometheus text and Chrome trace of the armed run: each
+    timed on the host, each checked -> (summary, snapshot)."""
+    import re
+
+    from sketches_tpu_torch import telemetry
+
+    out = {}
+    t0 = time.perf_counter()
+    snap = telemetry.snapshot()
+    out["snapshot_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    text = telemetry.prometheus_text()
+    out["prometheus_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trace = json.loads(json.dumps(telemetry.chrome_trace()))
+    out["chrome_s"] = time.perf_counter() - t0
+    n_series = n_exemplars = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, _, exemplar = line.partition(" # ")
+        require(re.match(PROM_LINE, series), f"prometheus line does not parse: {line!r}")
+        if exemplar:
+            require(re.match(PROM_EXEMPLAR, exemplar), f"exemplar does not parse: {line!r}")
+            n_exemplars += 1
+        n_series += 1
+    xs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    pids = {e["pid"] for e in xs}
+    require({telemetry.CHROME_PID_SPANS, telemetry.CHROME_PID_DEVICE} <= pids,
+            f"the chrome trace lacks the host or the device track: pids {sorted(pids)}")
+    merged = telemetry.merge_snapshots(snap, snap)
+    require(all(merged["counters"][k] == 2 * v for k, v in snap["counters"].items()),
+            "merge_snapshots(s, s) did not double the counters")
+    alpha = telemetry.HISTOGRAM_REL_ACC
+    p99_moved = 0
+    for k, h in snap["histograms"].items():
+        m = merged["histograms"][k]
+        require(m["count"] == 2 * h["count"], f"{k}: merged count")
+        for store in ("pos", "neg"):
+            require(m["state"][store] == {b: 2 * c for b, c in h["state"][store].items()},
+                    f"{k}: merged bins are not the single snapshot's, doubled")
+        if h["p99"] is None:
+            continue
+        # The sketch's rank is q * (n - 1): with every observation counted
+        # twice, p99 sits at the single snapshot's quantile q' below.
+        n = h["count"]
+        single = telemetry._sketch_from_state(h["state"], alpha)
+        want = single.get_quantile_value(min(1.0, 0.99 * (2 * n - 1) / (2 * (n - 1)))
+                                         if n > 1 else 0.99)
+        require(abs(m["p99"] - want) <= alpha * abs(want),
+                f"{k}: merged p99 {m['p99']} against {want} (single p99 {h['p99']})")
+        p99_moved += m["p99"] != h["p99"]
+    out.update(prometheus_series=n_series, prometheus_exemplars=n_exemplars,
+               chrome_events=len(trace["traceEvents"]), chrome_x_pids=sorted(pids),
+               histograms=len(snap["histograms"]), counters=len(snap["counters"]),
+               merged_p99_moved_by_rank=p99_moved)
+    return out, snap
+
+
+def phase_observability(device, card: dict, times: dict) -> dict:
+    """The four observability layers on the card: armed on the 1M x 512
+    mixed-sign quick start (two batches, the default route and the ladder
+    down to ``xla``) and a two-shard distributed add and floor query;
+    the profiling table against this run's kernel-alone times, the
+    exports, a traced downgrade, the accuracy audits (clean, and collapse
+    drift on a 128-bin facade), then the disarmed cost."""
+    import torch
+
+    from sketches_tpu_torch import (
+        BatchedDDSketch,
+        accuracy,
+        faults,
+        kernels,
+        profiling,
+        resilience,
+        telemetry,
+        tracing,
+    )
+    from sketches_tpu_torch.parallel import DistributedDDSketch, SketchMesh
+
+    t_phase = time.perf_counter()
+    require(not (telemetry.enabled() or profiling.enabled() or accuracy.enabled()),
+            "a layer was armed before the observability phase")
+    require(tracing.events() == [], "an earlier phase left flight-recorder events")
+    require(profiling.attribution()["measured"] == {}, "an earlier phase left profiling rows")
+    gen = torch.Generator(device=device).manual_seed(SEED + 808)
+
+    def facade(n=N_STREAMS, **kw):
+        return BatchedDDSketch(n_streams=n, relative_accuracy=ALPHA, **kw)
+
+    # The disarmed numbers first, before anything is armed.
+    timing = facade(n_bins=N_BINS, key_offset=OBS_KEY_OFFSET)
+    for _ in range(OBS_BATCHES):
+        timing.add(_mixed_batch(gen, N_STREAMS, device))
+    v_time = _mixed_batch(gen, N_STREAMS, device)
+    before = {"add_ms": event_ms(lambda: timing.add(v_time), warmup=2, reps=21)}
+    require(timing.get_quantile_values_resolved(QS)[0] == "overlap", "timing facade route")
+    before["overlap_query_ms"] = event_ms(lambda: timing.get_quantile_values(QS), reps=21)
+
+    # 1. Armed: the quick start, its ladder, the distributed floor.
+    sk = facade(n_bins=N_BINS, key_offset=OBS_KEY_OFFSET)
+    mesh = SketchMesh(devices=[device, device])
+    dist = DistributedDDSketch(N_STREAMS, mesh=mesh, relative_accuracy=ALPHA, n_bins=N_BINS,
+                               key_offset=OBS_KEY_OFFSET)
+    telemetry.enable()
+    profiling.enable()
+    accuracy.enable()
+    tracing.seed_ids(1)
+    accuracy.watch(sk, "quickstart", streams=OBS_WATCHED, interval=1)
+    kernels.reset_launch_counts()
+    for _ in range(OBS_BATCHES):
+        sk.add(_mixed_batch(gen, N_STREAMS, device))
+    routes = {}
+    for want, off in (("overlap", ()), ("tiles", ("overlap",)),
+                      ("windowed", ("overlap", "tiles")), ("xla", ("windowed", "wxla"))):
+        tier, got = sk.get_quantile_values_resolved(QS, disabled_tiers=off)
+        require(tier == want, f"observability: {off} resolved {tier!r}, expected {want!r}")
+        require(bool(torch.isfinite(got).all()), f"observability: {tier} answers not finite")
+        routes[want] = off
+    for _ in range(OBS_BATCHES):
+        dist.add(_mixed_batch(gen, N_STREAMS, device))
+    tier, got = dist.get_quantile_values_resolved(QS, disabled_tiers=("windowed", "wxla"))
+    require(tier == "xla" and bool(torch.isfinite(got).all()), "distributed floor")
+    audit = accuracy.summary()
+    require(audit["audits"] == OBS_BATCHES and audit["violations"] == 0,
+            f"the quick start's audits: {audit}, {accuracy.reports()[:4]}")
+
+    # 2. The profiling table against the kernel-alone times.
+    att = profiling.attribution()
+    rows = {f"{r['phase']}/{r['tier']}": r for r in att["attribution"]}
+    fold_bytes = 3 * sum(getattr(sk.state, f).numel() * getattr(sk.state, f).element_size()
+                         for f in ("bins_pos", "bins_neg"))
+    floors = {
+        "ingest/kernel": times["ingest"]["ms"],
+        "query/overlap": times["overlap_mixed"]["ms"],
+        "query/tiles": times["tiles"]["ms"],
+        "query/windowed": times["windowed"]["ms"],
+        "query/xla": times["fused_quantile"]["ms"],
+        # No kernel folds the partials: the floor is the bytes the fold must
+        # move (two partials' bins read, the fold's written).
+        "fold/psum": fold_bytes / card["mem_rate_Bps"] * 1e3,
+    }
+    table = {}
+    for key, floor_ms in floors.items():
+        require(key in rows, f"profiling has no {key} row: {sorted(rows)}")
+        r = rows[key]
+        mean_ms = r["mean_s"] * 1e3
+        require(mean_ms >= floor_ms, f"{key}: device-clocked mean {mean_ms:.4f} ms is below"
+                                     f" its kernel-alone floor {floor_ms:.4f} ms")
+        require(r["x_roofline"] is not None, f"{key}: no roofline joined")
+        table[key] = {"calls": r["calls"], "mean_ms": mean_ms, "floor_ms": floor_ms,
+                      "x_roofline": r["x_roofline"], "entry": r["entry"]}
+
+    # 3. The exports.
+    c = telemetry.snapshot()["counters"]
+    require(c.get("batched.ingest_batches") == OBS_BATCHES
+            and c.get("distributed.ingest_batches") == OBS_BATCHES,
+            f"ingest counters {c}")
+    # Every batch of both facades went through K1.
+    require(c.get("ingest.variant.stock") == 2 * OBS_BATCHES, f"ingest.variant.stock {c}")
+    exports, snap = _obs_checks_exports()
+
+    # 5. Collapse drift on a 128-bin facade fed lognormal(0, 6) rows.
+    narrow = facade(OBS_COLLAPSE_STREAMS, n_bins=128)
+    accuracy.watch(narrow, "narrow", streams=OBS_WATCHED, interval=1)
+    for _ in range(OBS_BATCHES):
+        narrow.add(torch.empty((OBS_COLLAPSE_STREAMS, BATCH), device=device)
+                   .log_normal_(0.0, OBS_COLLAPSE_SIGMA, generator=gen))
+    drift = [r for r in accuracy.reports() if r.name == "narrow" and r.kind == "collapse-drift"]
+    fracs = [v for k, v in telemetry.snapshot()["gauges"].items()
+             if k.startswith("accuracy.collapsed_mass_frac")]
+    require(drift and max(fracs) > 0, "the 128-bin lognormal(0, 6) facade reported no collapse drift")
+
+    # 4. A traced downgrade: ledger, telemetry and flight recorder.
+    small = facade(OBS_COLLAPSE_STREAMS, n_bins=N_BINS, key_offset=OBS_KEY_OFFSET)
+    small.add(_mixed_batch(gen, OBS_COLLAPSE_STREAMS, device))
+    require(resilience.health()["downgrades"] == [],
+            f"the armed path recorded {resilience.health()['downgrades']}")
+    with tracing.use(tracing.new_trace()) as ctx:
+        faults.arm(faults.PALLAS_LOWERING, tier="overlap", times=1)
+        try:
+            tier, _ = small.get_quantile_values_resolved(QS)
+        finally:
+            faults.disarm()
+    require(tier == "tiles", f"the traced downgrade answered on {tier!r}")
+    steps = _ledger_steps()
+    require(steps == [("batched.query", "overlap", "tiles")], f"ledger {steps}")
+    key = 'resilience.downgrade{component="batched.query",from_tier="overlap",to_tier="tiles"}'
+    require(telemetry.snapshot()["counters"].get(key) == 1, "the downgrade is not in telemetry")
+    require(any(e.get("name") == "resilience.downgrade" and e.get("ph") == "i"
+                for e in telemetry.chrome_trace()["traceEvents"]),
+            "the downgrade is not in the telemetry event stream")
+    recorded = [e for e in tracing.events()
+                if e["kind"] == "resilience.downgrade" and e["trace_id"] == ctx.trace_hex]
+    require(len(recorded) == 1, "the downgrade is not in the flight recorder")
+    bundle = tracing.dump_forensics("observability")
+    lines, n_events = tracing.explain(bundle, "trigger")
+    require(n_events >= 2, f"explain found {n_events} causal events: {lines}")
+    launches = kernels.launch_counts()
+    for name, count in launches.items():
+        require(count > 0, f"the armed path never launched {name}")
+    armed_s = time.perf_counter() - t_phase
+
+    # 6. Disarm and reset all four layers; the disarmed cost.
+    telemetry.disable()
+    telemetry.reset()
+    tracing.reset()
+    profiling.disable()
+    profiling.reset()
+    accuracy.disable()
+    accuracy.reset()
+    resilience.reset()
+    require(not tracing.enabled(), "the flight recorder stayed armed")
+    after = {"overlap_query_ms": event_ms(lambda: timing.get_quantile_values(QS), reps=21)}
+    after["add_ms"] = event_ms(lambda: timing.add(v_time), warmup=2, reps=21)
+    cost = {k: after[k] / before[k] - 1.0 for k in before}
+    for k, rel in cost.items():
+        require(abs(rel) <= OBS_DISARMED_TOL,
+                f"disarmed {k}: {after[k]:.4f} ms against {before[k]:.4f} ms before arming")
+    require(tracing.events() == [] and profiling.attribution()["measured"] == {},
+            "the disarmed layers recorded")
+
+    # The same facade calls, disarmed, timed with CUDA events: the ratio of
+    # each device-clocked row to its call.
+    v_add = _mixed_batch(gen, N_STREAMS, device)
+    event = {
+        "ingest/kernel": event_ms(lambda: sk.add(v_add), warmup=1, reps=5),
+        "query/overlap": event_ms(lambda: sk.get_quantile_values(QS), reps=5),
+        "query/tiles": event_ms(
+            lambda: sk.get_quantile_values_resolved(QS, disabled_tiers=routes["tiles"]), reps=5),
+        "query/windowed": event_ms(
+            lambda: sk.get_quantile_values_resolved(QS, disabled_tiers=routes["windowed"]),
+            reps=5),
+        # The xla row holds one batched call (the plain full window) and one
+        # distributed floor call (K2): the mean of the two calls' times.
+        "query/xla": mean([
+            event_ms(lambda: sk.get_quantile_values_resolved(QS, disabled_tiers=routes["xla"]),
+                     warmup=1, reps=3),
+            event_ms(lambda: dist.get_quantile_values_resolved(
+                QS, disabled_tiers=("windowed", "wxla")), reps=5)]),
+        "fold/psum": event_ms(lambda: (dist._invalidate(), dist.merged_state()), reps=5),
+    }
+    for key, row in table.items():
+        row["event_ms"] = event[key]
+        row["mean_over_event"] = row["mean_ms"] / event[key]
+    out = {
+        "card": card["smi"], "profiling": table, "exports": exports,
+        "counters": {k: snap["counters"][k] for k in
+                     ("batched.ingest_batches", "distributed.ingest_batches",
+                      "ingest.variant.stock", "accuracy.audits")},
+        "accuracy": {"quickstart": audit, "collapse_drift_reports": len(drift),
+                     "max_collapsed_mass_frac": max(fracs)},
+        "tracing": {"explain_events": n_events, "explain": lines},
+        "disarmed": {"before": before, "after": after, "relative": cost},
+        "launches": launches, "armed_s": armed_s,
+        "seconds": time.perf_counter() - t_phase,
+        "note": "armed rows: host clock across torch.cuda.synchronize (profiling.record);"
+                " x_roofline against the roofline at the audited shape (128 streams x 256"
+                " bins); floors: this run's kernel-alone times (fold: its bytes bound);"
+                " event_ms: the same facade calls disarmed, CUDA events, median of 5",
+    }
+    del sk, dist, timing, narrow, small
+    torch.cuda.empty_cache()
+    emit("observability", **out)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2299,10 +2604,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     robust = phase_robustness(device, pos)
     torch.cuda.empty_cache()
+    obs = phase_observability(device, card, {
+        "ingest": t_ingest, "windowed": t_win, "tiles": t_tiles,
+        "overlap_mixed": t_over_mixed, "fused_quantile": t_full})
+    require_ledger("observability")
+    torch.cuda.empty_cache()
 
     def launched(name):
         return sum(path["launches"][name]
-                   for path in (pos, mixed, dist, wire, ckpt, backends, robust))
+                   for path in (pos, mixed, dist, wire, ckpt, backends, robust, obs))
 
     src = "sketches_tpu_torch/csrc/"
     rows = [

@@ -21,7 +21,10 @@ The robustness layer is the JAX package's too: the kill-switch registry
 (``resilience``), deterministic fault injection (``faults``) and
 self-verifying state with fingerprints bit-equal to the JAX package's
 (``integrity``), all off by default and armed by the same environment
-switches.
+switches.  So is the observability layer: self-sketching telemetry
+(``telemetry``), request tracing and the flight recorder (``tracing``),
+device-clocked profiling (``profiling``) and the accuracy shadow audit
+(``accuracy``), wired into the same seams.
 
 This package imports torch and numpy only; it never imports JAX or the
 ``sketches_tpu`` package, and protobuf only on the wire paths that need
@@ -29,6 +32,7 @@ message objects.
 """
 
 from sketches_tpu_torch import (
+    accuracy,
     analysis,
     backends,
     checkpoint,
@@ -39,7 +43,10 @@ from sketches_tpu_torch import (
     native,
     parallel,
     pb,
+    profiling,
     resilience,
+    telemetry,
+    tracing,
 )
 from sketches_tpu_torch.backends.moment import MomentDDSketch
 from sketches_tpu_torch.backends.uniform import AdaptiveDDSketch
@@ -116,6 +123,7 @@ __all__ = [
     "FabricUnavailable",
     "QuarantineReport",
     "IntegrityReport",
+    "accuracy",
     "analysis",
     "backends",
     "checkpoint",
@@ -126,5 +134,8 @@ __all__ = [
     "native",
     "parallel",
     "pb",
+    "profiling",
     "resilience",
+    "telemetry",
+    "tracing",
 ]

@@ -17,8 +17,9 @@ the device: ``(6 + 2k) * 4`` bytes a stream (120 at the default k = 12).
   maximum-entropy solve, copied as it is, so equal f32 states answer bit
   for bit alike in both packages.
 
-The accuracy audit, integrity fingerprints and telemetry counters of the
-JAX facade are left out until the robustness slice (ROADMAP A9).
+Armed telemetry counts the host solves (``backend.moment_solves``,
+``backend.moment_fallbacks``) and times the facade's ``add``; the armed
+accuracy audit samples it, as in the JAX package.
 
 Failure modes: empty streams answer NaN; a failed maxent solve falls back
 to fewer moments (then a uniform density), never raises; merging unequal
@@ -35,7 +36,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sketches_tpu_torch import faults, integrity, resilience
+from sketches_tpu_torch import accuracy, faults, integrity, resilience, telemetry
 from sketches_tpu_torch.batched import DEFAULT_REL_ACC, SketchSpec, resolve_device
 from sketches_tpu_torch.mapping import zero_threshold
 from sketches_tpu_torch.resilience import (
@@ -472,12 +473,18 @@ def quantile(spec: SketchSpec, mstate: MomentState, qs) -> np.ndarray:
     )
     n = count.shape[0]
     out = np.empty((n, qs_arr.shape[0]), np.float64)
+    n_fallback = 0
     for i in range(n):
-        out[i], _ = _stream_quantiles(
+        out[i], fb = _stream_quantiles(
             int(mstate.n_moments), float(count[i]), float(zero[i]),
             float(neg[i]), float(vmin[i]), float(vmax[i]), powers[i],
             log_powers[i], qs_arr,
         )
+        n_fallback += bool(fb)
+    if telemetry._ACTIVE:
+        telemetry.counter_inc("backend.moment_solves", float(n))
+        if n_fallback:
+            telemetry.counter_inc("backend.moment_fallbacks", float(n_fallback))
     return out.astype(np.float32)
 
 
@@ -521,7 +528,12 @@ class MomentDDSketch:
     def add(self, values, weights=None) -> "MomentDDSketch":
         """Ingest ``values[n_streams, S]``; padding and NaN follow the dense
         tier.  Returns self."""
+        _t0 = telemetry.clock() if telemetry._ACTIVE else None
         self._state = add(self.spec, self._state, values, weights)
+        if _t0 is not None:
+            telemetry.finish_span("ingest_s", _t0, component="moment", engine="moment")
+        if accuracy._ACTIVE:
+            accuracy.observe_ingest(self, values, weights)
         return self
 
     def get_quantile_value(self, q: float) -> np.ndarray:

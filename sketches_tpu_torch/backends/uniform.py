@@ -28,9 +28,10 @@ base key of ``v`` is ``k0 = ceil(log_gamma v)`` and the level-L key is
   ``exp`` re-decodes it at the stream's level, whichever tier answered.
 
 The JAX package jits its facade's closures; here they are plain functions
-on tensors, run eagerly on the state's device.  The integrity fingerprints,
-telemetry counters and tracing events of the JAX facade are left out until
-the robustness slice (ROADMAP A9).
+on tensors, run eagerly on the state's device.  Armed telemetry counts each
+collapse (``backend.collapses``, ``backend.effective_alpha`` of up to 8
+collapsed streams) and the armed flight recorder keeps a
+``backend.collapse`` event, as in the JAX package.
 
 Failure modes: a collapse (the pre-ingest guard, the post-ingest trigger,
 an explicit :meth:`AdaptiveDDSketch.collapse` or a mixed-level merge) with
@@ -50,7 +51,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from sketches_tpu_torch import batched, integrity, parallel
+from sketches_tpu_torch import batched, integrity, parallel, telemetry, tracing
 from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.batched import (
     BatchedDDSketch,
@@ -645,6 +646,17 @@ class AdaptiveDDSketch:
         self._level = self._level + mask_d.to(torch.int32)
         self._any_level = True
         self._trigger_collapsed = self._collapsed_host()
+        mask = np.asarray(mask, bool)
+        n = int(mask.sum())
+        if telemetry._ACTIVE:
+            telemetry.counter_inc("backend.collapses", float(n))
+            alpha = effective_alpha(spec, self._level).cpu().numpy()
+            for s in np.nonzero(mask)[0][:8]:
+                telemetry.gauge_set(
+                    "backend.effective_alpha", float(alpha[s]), stream=int(s)
+                )
+        if tracing._ACTIVE:
+            tracing.record_event("backend.collapse", n_streams=n, component="adaptive")
 
     def collapse(self, mask=None) -> "AdaptiveDDSketch":
         """Collapse the masked streams (default: all) one level; streams at

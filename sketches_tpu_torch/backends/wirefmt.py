@@ -27,8 +27,9 @@ dense blobs stay the classic bytes.  Hand-rolled proto3::
 Both packages write the same bytes for the same state and read each
 other's blobs.  The windowed envelope (``windowed_to_bytes`` /
 ``windowed_from_bytes``) comes with the windowed sketch (ROADMAP A10) and
-raises ``SpecError`` until then; the JAX package's decode counters
-(telemetry) are left out until the robustness slice (ROADMAP A9).
+raises ``SpecError`` until then.  Armed telemetry counts each native
+scan (``wire.native.decode_calls``) and its careful-path handoffs
+(``wire.native.careful_fallbacks``), as in the JAX package.
 
 Failure modes: an unknown backend enum value raises ``WireDecodeError``
 naming it; truncated or garbled blobs, wrong wire types, a level outside
@@ -45,6 +46,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from sketches_tpu_torch import telemetry
 from sketches_tpu_torch.backends import BACKEND_ENUM, BACKEND_NAMES
 from sketches_tpu_torch.resilience import SpecError, WireDecodeError
 
@@ -264,6 +266,13 @@ def _wrong_backend(idx: int, backend: int, want: str) -> WireDecodeError:
     )
 
 
+def _native_scan_counters(n_careful: int) -> None:
+    if telemetry._ACTIVE:
+        telemetry.counter_inc("wire.native.decode_calls")
+        if n_careful:
+            telemetry.counter_inc("wire.native.careful_fallbacks", float(n_careful))
+
+
 def payload_from_bytes(spec, blobs, *, assume_native_linear: bool = False, device=None):
     """Decode envelope (or, under a dense spec, classic) blobs into one
     backend state on ``device`` (the card by default).
@@ -319,6 +328,8 @@ def payload_from_bytes(spec, blobs, *, assume_native_linear: bool = False, devic
             )
             if n_careful < 0:
                 status[:] = 1
+                n_careful = n
+            _native_scan_counters(int(n_careful))
             ok = status == 0
             bad_level = ok & ((level_arr < 0) | (level_arr > spec.max_collapses))
             for idx in np.nonzero(ok & ~bad_level)[0].tolist():
@@ -372,6 +383,7 @@ def payload_from_bytes(spec, blobs, *, assume_native_linear: bool = False, devic
         if n_careful < 0:
             status[:] = 1
         careful = np.nonzero(status)[0].tolist()
+        _native_scan_counters(len(careful))
     else:
         careful = list(range(n))
     for idx in careful:

@@ -38,7 +38,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from sketches_tpu_torch import faults, integrity, resilience
+from sketches_tpu_torch import accuracy, faults, integrity, profiling, resilience, telemetry, tracing
 from sketches_tpu_torch.mapping import KeyMapping, mapping_from_name, zero_threshold
 from sketches_tpu_torch.resilience import (
     SketchValueError,
@@ -859,9 +859,18 @@ class BatchedDDSketch:
 
     def add(self, values, weights=None) -> "BatchedDDSketch":
         """Ingest ``values[n_streams, S]``; returns self.  A 1-D ``values``
-        is one value per stream; ``weights <= 0`` entries are padding."""
+        is one value per stream; ``weights <= 0`` entries are padding.
+
+        Armed observability records the engine that served (``recenter``,
+        ``kernel`` or ``plain``): the ``ingest_s`` span and the ingest
+        counters, an ``engine.ingest`` flight-recorder event, the
+        device-clocked ``ingest`` row, and the accuracy audit's reservoir
+        feed."""
         from sketches_tpu_torch import kernels
 
+        _t0 = telemetry.clock() if telemetry._ACTIVE else None
+        _p0 = telemetry.clock() if profiling._ACTIVE else None
+        _eng = "plain"
         values = torch.as_tensor(values, dtype=self.spec.dtype, device=self.device)
         if weights is not None:
             weights = torch.as_tensor(weights, dtype=self.spec.dtype, device=self.device)
@@ -884,6 +893,7 @@ class BatchedDDSketch:
                 mask = torch.as_tensor(self._pending_recenter_mask, device=self.device)
             self._auto_recenter_pending = False
             self._pending_recenter_mask = None
+            _eng = "recenter"
             self._stream_op(self._add_recentering, values, weights, mask)
             if armed_by_policy:
                 st = self.state
@@ -900,6 +910,7 @@ class BatchedDDSketch:
             try:
                 if faults._ACTIVE:
                     faults.inject(faults.PALLAS_INGEST)
+                _eng = "kernel"
                 self._stream_op(functools.partial(kernels.add, self.spec), values, weights)
             except Exception as e:
                 # The ingest kernel is lost: this facade takes the plain
@@ -913,6 +924,7 @@ class BatchedDDSketch:
                 resilience.record_downgrade(
                     f"{self._health_component}.ingest", "kernel", "plain", repr(e)
                 )
+                _eng = "plain"
                 try:
                     self._stream_op(
                         functools.partial(add, self.spec), values, weights,
@@ -926,6 +938,21 @@ class BatchedDDSketch:
         else:
             self._stream_op(functools.partial(add, self.spec), values, weights)
         self._invalidate_plans()
+        if _t0 is not None:
+            telemetry.finish_span("ingest_s", _t0, component="batched", engine=_eng)
+            telemetry.counter_inc("batched.ingest_batches")
+            # K1 computes the stock construction's contract; the other
+            # construction rungs are not ported, so they never count.
+            if _eng == "kernel":
+                telemetry.counter_inc("ingest.variant.stock")
+        if tracing._ACTIVE:
+            tracing.record_event("engine.ingest", engine=_eng, component="batched")
+        # Device-clocked attribution after the host span closes: the span
+        # measures submission, the profiling record waits for execution.
+        if _p0 is not None:
+            profiling.record("ingest", _eng, _p0, self.state)
+        if accuracy._ACTIVE:
+            accuracy.observe_ingest(self, values, weights)
         return self
 
     def add_validated(self, values, weights=None) -> "BatchedDDSketch":
@@ -1039,7 +1066,18 @@ class BatchedDDSketch:
             try:
                 if faults._ACTIVE:
                     faults.inject(faults.PALLAS_LOWERING, tier=tier)
-                return tier, fn(self.state, qs)
+                _t0 = telemetry.clock() if telemetry._ACTIVE else None
+                _p0 = telemetry.clock() if profiling._ACTIVE else None
+                out = fn(self.state, qs)
+                if _t0 is not None:
+                    telemetry.finish_span("query_s", _t0, component="batched", tier=tier)
+                if _p0 is not None:
+                    profiling.record("query", tier, _p0, out)
+                if tracing._ACTIVE:
+                    # The resolved rung, on the request's trace: the
+                    # forensic answer to "which engine actually served".
+                    tracing.record_event("engine.query", tier=tier, component="batched")
+                return tier, out
             except Exception as e:
                 if not resilience.demote_query(
                     self._health_component, self._query_disabled, tier, e,
@@ -1075,6 +1113,8 @@ class BatchedDDSketch:
             raise UnequalSketchParametersError(
                 "Cannot merge two batched sketches with different specs"
             )
+        _t0 = telemetry.clock() if telemetry._ACTIVE else None
+        _p0 = telemetry.clock() if profiling._ACTIVE else None
         # Guarded integrity seam: fingerprint the operands before the
         # in-place merge, verify the result against them after.
         _ipre = (
@@ -1085,6 +1125,10 @@ class BatchedDDSketch:
         self._stream_op(functools.partial(_merge_aligned_body, self.spec), other.state)
         if _ipre is not None:
             integrity.postmerge(self.spec, self.state, _ipre, seam="batched.merge")
+        if _t0 is not None:
+            telemetry.finish_span("merge_s", _t0, component="batched")
+        if _p0 is not None:
+            profiling.record("fold", "merge", _p0, self.state)
         self._invalidate_plans()
         if self._auto_recenter_pending and bool((other.state.count > 0).any()):
             self._auto_recenter_pending = False

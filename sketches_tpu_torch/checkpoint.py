@@ -50,7 +50,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from sketches_tpu_torch import faults, integrity
+from sketches_tpu_torch import faults, integrity, telemetry
 from sketches_tpu_torch.backends.moment import FIELDS as MOMENT_FIELDS
 from sketches_tpu_torch.backends.moment import MomentState
 from sketches_tpu_torch.batched import (
@@ -196,6 +196,7 @@ def save_state(path: str, spec: SketchSpec, state: SketchState) -> None:
     ``spec.backend`` raises ``SpecError``; with the integrity layer armed a
     corrupted state is refused (``IntegrityError``) and the content
     fingerprint rides along as ``__fingerprint__``."""
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
     if integrity._ACTIVE:
         integrity.verify_state(spec, state, seam="checkpoint.save")
     arrays = _state_arrays(spec, state)
@@ -227,6 +228,9 @@ def save_state(path: str, spec: SketchSpec, state: SketchState) -> None:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
+        if _t0 is not None:
+            telemetry.finish_span("checkpoint.save_s", _t0)
+            telemetry.gauge_set("checkpoint.bytes", float(len(data)))
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -244,6 +248,7 @@ def restore_state(path: str, device=None) -> Tuple[SketchSpec, SketchState]:
     the ``__fingerprint__`` member when the file has one (``IntegrityError``
     or a report, per the mode).
     """
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
     dev = resolve_device(device)
     try:
         spec, state, stored_fp = _restore_state_inner(path, dev)
@@ -255,6 +260,8 @@ def restore_state(path: str, device=None) -> Tuple[SketchSpec, SketchState]:
         ) from e
     if integrity._ACTIVE:
         integrity.verify_restore(spec, state, stored_fp, seam="checkpoint.restore")
+    if _t0 is not None:
+        telemetry.finish_span("checkpoint.restore_s", _t0)
     return spec, state
 
 

@@ -27,7 +27,7 @@ import typing
 import numpy as np
 import torch
 
-from sketches_tpu_torch import integrity
+from sketches_tpu_torch import integrity, telemetry
 from sketches_tpu_torch.mapping import KeyMapping, LogarithmicMapping, zero_threshold
 from sketches_tpu_torch.resilience import (
     SketchValueError,
@@ -374,6 +374,7 @@ class TorchDDSketch(BaseDDSketch):
         if v64.size == 0:
             return
         self._flush()  # drain buffered scalar adds ahead of this batch
+        _t0 = telemetry.clock() if telemetry._ACTIVE else None
         self._host_cache = None
         # Device-semantics zero classification, identical to _flush.
         v32 = v64.astype(np.float32)
@@ -403,10 +404,15 @@ class TorchDDSketch(BaseDDSketch):
             self._max = max(self._max, float(v64[finite].max()))
         if zero_lanes.any():
             self._zero_count += float(w64[zero_lanes].sum())
+        if _t0 is not None:
+            telemetry.finish_span("scalar.ingest_s", _t0, path="add_many")
+            telemetry.counter_inc("scalar.values", float(v64.size))
 
     def _flush(self) -> None:
         if not self._pending_vals:
             return
+        _t0 = telemetry.clock() if telemetry._ACTIVE else None
+        _n = len(self._pending_vals)
         self._host_cache = None
         while self._pending_vals:
             chunk_v = self._pending_vals[: self._FLUSH_CHUNK]
@@ -442,6 +448,9 @@ class TorchDDSketch(BaseDDSketch):
                 self._max = max(self._max, float(v64[finite].max()))
             if zero_lanes.any():
                 self._zero_count += float(w64[zero_lanes].sum())
+        if _t0 is not None:
+            telemetry.finish_span("scalar.ingest_s", _t0, path="flush")
+            telemetry.counter_inc("scalar.values", float(_n))
 
     def _flush_native(self, v64, w64, zero_lanes) -> None:
         """Feed one chunk to the native accumulator.

@@ -111,6 +111,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from sketches_tpu_torch import tracing
 from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.resilience import InjectedFault, SpecError, bump
 
@@ -331,7 +332,13 @@ def inject(site: str, payload=None, index: Optional[int] = None, tier=None):
         return payload
     plan.fired += 1
     bump("faults." + site)
-    # The tracing mirrors of injected faults go here with slice A9(b).
+    if tracing._ACTIVE:
+        # Injected faults are exactly the events a forensic bundle must
+        # carry: the adversary's move, on the victim request's trace.
+        tracing.record_event(
+            "fault.injected", site=site, mode=plan.mode,
+            tier=str(tier) if tier is not None else None,
+        )
     if plan.mode == "raise":
         if plan.exc is not None:
             raise plan.exc
@@ -375,6 +382,10 @@ def _armed_indices(site: str, n: int) -> Tuple[int, ...]:
     if hit:
         plan.fired += 1
         bump("faults." + site)
+        if tracing._ACTIVE:
+            tracing.record_event(
+                "fault.injected", site=site, indices=str(hit)
+            )
     return hit
 
 
@@ -482,6 +493,11 @@ def agg_stale_flips(
     bit = (h >> 25) % 32
     plan.fired += 1
     bump("faults." + WINDOW_AGG_STALE)
+    if tracing._ACTIVE:
+        tracing.record_event(
+            "fault.injected", site=WINDOW_AGG_STALE,
+            coords=str((store, stream, bin_, bit)),
+        )
     return ((store, stream, bin_, bit),)
 
 
@@ -521,6 +537,11 @@ def replica_stale_flips(
     bit = (21, 22, 30)[(h >> 25) % 3]
     plan.fired += 1
     bump("faults." + FABRIC_REPLICA_STALE)
+    if tracing._ACTIVE:
+        tracing.record_event(
+            "fault.injected", site=FABRIC_REPLICA_STALE,
+            coords=str((store, stream, bin_, bit)),
+        )
     return ((store, stream, bin_, bit),)
 
 
@@ -549,6 +570,10 @@ def cache_poison_flip(n_bytes: int) -> Optional[Tuple[int, int]]:
     bit = (h >> 24) % 8
     plan.fired += 1
     bump("faults." + SERVE_CACHE_POISON)
+    if tracing._ACTIVE:
+        tracing.record_event(
+            "fault.injected", site=SERVE_CACHE_POISON, byte=byte, bit=bit
+        )
     return (byte, bit)
 
 

@@ -30,8 +30,8 @@ as the invariant worth defending).  This module makes corruption
   :class:`~sketches_tpu_torch.resilience.IntegrityError` (mode
   ``"raise"``) or land in an :class:`IntegrityReport` (mode
   ``"quarantine"``) and are counted in the ``resilience.health()``
-  ledger.  (The JAX package also feeds its telemetry counters and flight
-  recorder; those layers are not ported yet.)  :func:`repair` rewrites
+  ledger, the declared ``integrity.*`` telemetry metrics and (armed) the
+  flight recorder.  :func:`repair` rewrites
   what is *provably* repairable from the bins (the ground truth): clips
   negative masses, recounts ``count``/``neg_total``, recomputes
   ``tile_sums`` and the occupied bounds, and restores the empty-stream
@@ -77,6 +77,7 @@ import numpy as np
 
 import torch
 
+from sketches_tpu_torch import telemetry
 from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.resilience import IntegrityError, SketchValueError, bump
 
@@ -761,16 +762,31 @@ def check(obj, seam: str = "check") -> IntegrityReport:
 
 
 def _record(report: IntegrityReport, errors: Optional[str]) -> IntegrityReport:
-    """Apply the armed policy to a finished check: on violations feed the
-    ledger and raise or quarantine."""
+    """Apply the armed policy to a finished check: count it, and on
+    violations feed the ledger/telemetry and raise or quarantine."""
     global _reports_dropped
-    # The telemetry counters and the flight-recorder event of a check go
-    # here with slice A9(b).
+    if telemetry._ACTIVE:
+        telemetry.counter_inc("integrity.checks")
     if not report:
         return report
     bump("integrity.violations", report.n_violations)
     for kind, k in report.counters.items():
         bump(f"integrity.violations.{kind}", k)
+    if telemetry._ACTIVE:
+        telemetry.counter_inc(
+            "integrity.violations", float(report.n_violations)
+        )
+    # Flight-recorder feed: an integrity violation is forensic evidence
+    # by definition (lazy import: tracing loads this module's reports).
+    from sketches_tpu_torch import tracing
+
+    if tracing._ACTIVE:
+        tracing.record_event(
+            "integrity.violation", seam=report.seam,
+            n_violations=report.n_violations,
+            first=str(report.violations[0].invariant) if report.violations
+            else None,
+        )
     with _lock:
         if len(_reports) < _MAX_REPORTS:
             _reports.append(report)
@@ -795,10 +811,13 @@ def verify_state(
 
     Raises :class:`IntegrityError` on violations in ``"raise"`` mode
     (the default armed mode); in ``"quarantine"`` mode the report is
-    recorded (ring + ledger counters) and returned.  A clean
+    recorded (ring + ledger counters + telemetry) and returned.  A clean
     state returns a falsy report either way.
     """
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
     report = check_state(spec, state, seam=seam)
+    if _t0 is not None:
+        telemetry.finish_span("integrity.check_s", _t0, seam=seam)
     return _record(report, errors)
 
 
@@ -809,7 +828,10 @@ def verify(
     armed policy -- raises :class:`IntegrityError` on violations in
     ``"raise"`` mode, records and returns the report in
     ``"quarantine"`` mode."""
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
     report = check(obj, seam=seam)
+    if _t0 is not None:
+        telemetry.finish_span("integrity.check_s", _t0, seam=seam)
     return _record(report, errors)
 
 
@@ -940,6 +962,7 @@ def verify_restore(
     checkpoint carried a content fingerprint (armed save), the
     save->restore fingerprint comparison.  Violations raise
     ``IntegrityError``/quarantine per the armed mode."""
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
     report = check_state(spec, state, seam=seam)
     if stored_fp is not None:
         fp_now = fingerprint(spec, state)
@@ -959,6 +982,8 @@ def verify_restore(
             _flag(report, bad, "fingerprint",
                   lambda i: f"restored fingerprint {fp_now[i]:g} != saved"
                   f" {sf[i]:g}")
+    if _t0 is not None:
+        telemetry.finish_span("integrity.check_s", _t0, seam=seam)
     return _record(report, None)
 
 
@@ -1093,6 +1118,9 @@ def repair(spec, state) -> Tuple[Any, IntegrityReport]:
     if bads.any():
         total = np.where(bads, np.sign(total) * bound, total)
         _flag(report, bads, "sum", lambda i: "clamped to count*max|value|")
+
+    if report and telemetry._ACTIVE:
+        telemetry.counter_inc("integrity.repairs", float(report.n_violations))
 
     dev = state.bins_pos.device
     bd = np.dtype(str(spec.bin_dtype).rsplit(".", 1)[-1])

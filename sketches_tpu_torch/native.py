@@ -41,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from sketches_tpu_torch import faults, resilience
+from sketches_tpu_torch import faults, resilience, telemetry
 from sketches_tpu_torch._build import BUILD_DIR
 from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.resilience import (
@@ -148,6 +148,7 @@ def _load() -> typing.Optional[ctypes.CDLL]:
             resilience.record_downgrade("native", "native", "python", _status["reason"])
             return None
         last_error = None
+        _t0 = telemetry.clock() if telemetry._ACTIVE else None
         for attempt in range(_MAX_LOAD_ATTEMPTS):
             if attempt:
                 time.sleep(
@@ -157,6 +158,8 @@ def _load() -> typing.Optional[ctypes.CDLL]:
             try:
                 if faults._ACTIVE:
                     faults.inject(faults.NATIVE_LOAD)
+                if _t0 is not None:
+                    telemetry.counter_inc("native.load_attempts")
                 _lib = _bind(ctypes.CDLL(str(_build())))
             except (OSError, subprocess.CalledProcessError, resilience.InjectedFault) as e:
                 last_error = getattr(e, "stderr", None) or str(e)
@@ -174,6 +177,8 @@ def _load() -> typing.Optional[ctypes.CDLL]:
                 # The host engine loaded but the bulk wire scanner did not:
                 # the wire fast path degrades to the pure-Python walker.
                 resilience.record_downgrade("native.wire", "native", "python", _status["reason"])
+            if _t0 is not None:
+                telemetry.finish_span("native.load_s", _t0)
             return _lib
         _degrade(f"load failed after {_MAX_LOAD_ATTEMPTS} attempts: {last_error}")
         resilience.record_downgrade("native", "native", "python", _status["reason"])

@@ -31,8 +31,15 @@ mass itemized; ``fold_hosts`` folds around DCN-partitioned hosts; a torn
 ``reshard`` (``reshard.torn``) raises and leaves the fleet intact.  With
 the integrity layer armed, every fold runs the fingerprint lane
 (``integrity.verify_fold``), ``merge`` fingerprints its operands and its
-result, and ``reshard`` carries fingerprints across the boundary.  The
-JAX package's telemetry is not ported yet.
+result, and ``reshard`` carries fingerprints across the boundary.
+
+Observability follows the JAX package's seams: armed telemetry times the
+ingest (engine ``shards``), the fold of the partials (``distributed.fold_s``),
+each query tier, ``merge``, the cross-host fold and ``reshard`` (with its
+elastic counters and gauge); the flight recorder gets the engine, fold,
+DCN-partition and reshard events (a reshard outside any trace roots its
+own); profiling device-clocks the ingest, the ``psum`` fold, the query
+and the merge; the accuracy audit samples the ingest.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from sketches_tpu_torch import faults, integrity, kernels, resilience
+from sketches_tpu_torch import accuracy, faults, integrity, kernels, profiling, resilience, telemetry, tracing
 from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.batched import (
     LEAVES,
@@ -397,6 +404,7 @@ def fold_hosts(spec: SketchSpec, states, reachable=None):
             raise SketchValueError(f"reachable mask length {reach.shape[0]} != {n_hosts} hosts")
     if not reach.any():
         raise ShardLossError(f"all {n_hosts} hosts unreachable across DCN; nothing to fold")
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
     live_idx = np.nonzero(reach)[0]
     dev = states[int(live_idx[0])].device
     offs = np.stack([st.key_offset.cpu().numpy() for st in states])
@@ -422,7 +430,8 @@ def fold_hosts(spec: SketchSpec, states, reachable=None):
         dropped_count=counts[~reach].sum(0),
     )
     if not reach.all():
-        resilience.bump("dcn.partitions", int((~reach).sum()))
+        n_part = int((~reach).sum())
+        resilience.bump("dcn.partitions", n_part)
         resilience.record_downgrade(
             "distributed.dcn",
             f"{n_hosts} hosts",
@@ -430,6 +439,14 @@ def fold_hosts(spec: SketchSpec, states, reachable=None):
             f"DCN partition at the cross-host fold: hosts {report.dead_shards}"
             f" unreachable; dropped {report.total_dropped_fraction:.4f} of total mass",
         )
+        if telemetry._ACTIVE:
+            telemetry.counter_inc("elastic.dcn_partitions", float(n_part))
+        if tracing._ACTIVE:
+            tracing.record_event(
+                "elastic.dcn_partition", hosts=str(report.dead_shards), n_hosts=n_hosts,
+            )
+    if _t0 is not None:
+        telemetry.finish_span("elastic.dcn_fold_s", _t0)
     return folded, report
 
 
@@ -542,17 +559,22 @@ class DistributedDDSketch:
         # The demotion ladder's persistent state (resilience.QUERY_LADDER).
         self._query_disabled: set = set()
         self._health_component = "distributed"
+        # The engine that served the last partial's ingest (``_local_add``).
+        self._served = "plain"
 
     # -- ingest --------------------------------------------------------------
     def _local_add(self, st: SketchState, values, weights) -> SketchState:
         """One partial's ingest: the fused kernel when this call's per-shard
-        width qualifies, the plain scatter ``add`` otherwise."""
+        width qualifies, the plain scatter ``add`` otherwise (the engine
+        that served is kept in ``_served``, for the ingest counters)."""
         if (
             self._kernel_ingest
             and kernels.supports(self.spec, st.n_streams, values.shape[-1])
             and not (self.spec.bins_integer and weights is not None)
         ):
+            self._served = "kernel"
             return kernels.add(self.spec, st, values, weights)
+        self._served = "plain"
         return add(self.spec, st, values, weights)
 
     def _block(self, x, s: int, v: int):
@@ -567,6 +589,8 @@ class DistributedDDSketch:
     def add(self, values, weights=None) -> "DistributedDDSketch":
         """Ingest ``values[n_streams, S]``; S must divide by the number of
         value shards (pad ragged batches with ``weights == 0`` entries)."""
+        _t0 = telemetry.clock() if telemetry._ACTIVE else None
+        _p0 = telemetry.clock() if profiling._ACTIVE else None
         values = torch.as_tensor(values, dtype=self.spec.dtype)
         if values.ndim == 1:
             values = values[:, None]
@@ -601,6 +625,16 @@ class DistributedDDSketch:
             st = self.merged_state()
             self._policy_collapsed = (st.collapsed_low + st.collapsed_high).double().cpu().numpy()
             self._policy_binned = (st.count - st.zero_count).double().cpu().numpy()
+        if _t0 is not None:
+            telemetry.finish_span("ingest_s", _t0, component="distributed", engine="shards")
+            telemetry.counter_inc("distributed.ingest_batches")
+            # K1 computes the stock construction's contract.
+            if self._served == "kernel":
+                telemetry.counter_inc("ingest.variant.stock")
+        if _p0 is not None:
+            profiling.record("ingest", "shards", _p0, self._shards)
+        if accuracy._ACTIVE:
+            accuracy.observe_ingest(self, values, weights)
         return self
 
     def _recenter_ingest(self, values, weights, mask, or_empty: bool) -> None:
@@ -637,10 +671,18 @@ class DistributedDDSketch:
         """Each stream shard's folded state on its first device (cached
         between mutations)."""
         if self._folds is None:
+            _t0 = telemetry.clock() if telemetry._ACTIVE else None
+            _p0 = telemetry.clock() if profiling._ACTIVE else None
             self._folds = [
                 psum_merge(row, n_hosts=self._fold_groups, device=devs[0])
                 for row, devs in zip(self._shards, self._grid)
             ]
+            if _t0 is not None:
+                telemetry.finish_span("distributed.fold_s", _t0)
+            if _p0 is not None:
+                profiling.record("fold", "psum", _p0, self._folds)
+            if tracing._ACTIVE:
+                tracing.record_event("engine.fold", tier="psum", component="distributed")
         return self._folds
 
     def merged_state(self) -> SketchState:
@@ -743,7 +785,16 @@ class DistributedDDSketch:
             try:
                 if faults._ACTIVE:
                     faults.inject(faults.PALLAS_LOWERING, tier=tier)
-                outs = [fn(st, self._qs_on(qs_tuple, st.device)) for st in self._shard_folds()]
+                folds = self._shard_folds()
+                _t0 = telemetry.clock() if telemetry._ACTIVE else None
+                _p0 = telemetry.clock() if profiling._ACTIVE else None
+                outs = [fn(st, self._qs_on(qs_tuple, st.device)) for st in folds]
+                if _t0 is not None:
+                    telemetry.finish_span("query_s", _t0, component="distributed", tier=tier)
+                if _p0 is not None:
+                    profiling.record("query", tier, _p0, outs)
+                if tracing._ACTIVE:
+                    tracing.record_event("engine.query", tier=tier, component="distributed")
             except Exception as e:
                 if not resilience.demote_query(
                     self._health_component, self._query_disabled, tier, e,
@@ -796,6 +847,8 @@ class DistributedDDSketch:
             raise SpecError("merge needs operands on meshes of one shape; reshard one first")
         a_st = self.merged_state()
         b_st = other.merged_state()
+        _t0 = telemetry.clock() if telemetry._ACTIVE else None
+        _p0 = telemetry.clock() if profiling._ACTIVE else None
         # Guarded integrity seam on the folded states (the partials are
         # covered by the fold lane).
         _ipre = (
@@ -812,6 +865,10 @@ class DistributedDDSketch:
             [_fold_pair(x, y.map(lambda t, d=x.device: t.to(d))) for x, y in zip(r1, r2)]
             for r1, r2 in zip(mine, theirs)
         ]
+        if _t0 is not None:
+            telemetry.finish_span("merge_s", _t0, component="distributed")
+        if _p0 is not None:
+            profiling.record("fold", "merge", _p0, self._shards)
         self._invalidate()
         if _ipre is not None:
             integrity.postmerge(self.spec, self.merged_state(), _ipre, seam="distributed.merge")
@@ -935,14 +992,26 @@ class DistributedDDSketch:
         fingerprints and the regrown fold's, and the boundary is verified
         (``integrity.verify_reshard``).  Atomic: a torn reshard (the
         ``reshard.torn`` site) or any other failure raises and leaves this
-        facade as it was.  Raises ``SpecError`` when
-        ``SKETCHES_TPU_ELASTIC=0`` or without a target, ``ShardLossError``
-        when no shard survives, ``SketchValueError`` on a bad mask."""
+        facade as it was.  With the flight recorder armed and no trace
+        bound, the reshard roots a trace of its own.  Raises ``SpecError``
+        when ``SKETCHES_TPU_ELASTIC=0`` or without a target,
+        ``ShardLossError`` when no shard survives, ``SketchValueError`` on
+        a bad mask."""
         if not registry.enabled(registry.ELASTIC):
             raise SpecError(
                 "elastic resharding disabled (SKETCHES_TPU_ELASTIC=0);"
                 " checkpoint and restore_distributed onto the new topology instead"
             )
+        if tracing._ACTIVE and tracing.current() is None:
+            # A control-plane operation outside any request roots a trace
+            # of its own, so its fold/regrow/verify chain resolves as one
+            # causal unit under ``tracing --explain``.
+            with tracing.use(tracing.new_trace()):
+                return self._reshard_inner(mesh, n_devices, live_mask, engine, n_hosts)
+        return self._reshard_inner(mesh, n_devices, live_mask, engine, n_hosts)
+
+    def _reshard_inner(self, mesh, n_devices, live_mask, engine, n_hosts):
+        _t0 = telemetry.clock() if telemetry._ACTIVE else None
         k = self.n_value_shards
         live = np.ones((k,), bool)
         if live_mask is not None:
@@ -1013,6 +1082,30 @@ class DistributedDDSketch:
             )
         if hosts_down:
             resilience.bump("mesh.host_losses", len(hosts_down))
+        kind = (
+            "grow" if report.to_devices > report.from_devices
+            else "shrink" if report.to_devices < report.from_devices
+            else "rebuild"
+        )
+        if _t0 is not None:
+            telemetry.finish_span("elastic.reshard_s", _t0)
+            telemetry.counter_inc("elastic.reshards", kind=kind)
+            telemetry.gauge_set("elastic.mesh_devices", float(report.to_devices))
+            if report.n_dead:
+                telemetry.counter_inc("elastic.dropped_mass", report.total_dropped)
+            if hosts_down:
+                telemetry.counter_inc("elastic.host_losses", float(len(hosts_down)))
+        if tracing._ACTIVE:
+            tracing.record_event(
+                "elastic.reshard",
+                direction=kind,
+                from_devices=report.from_devices,
+                to_devices=report.to_devices,
+                n_dead=report.n_dead,
+                lost_hosts=str(report.lost_hosts),
+                dropped=report.total_dropped,
+                exact=report.exact,
+            )
         return new, report
 
     @classmethod

@@ -48,7 +48,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from sketches_tpu_torch import faults, integrity, resilience
+from sketches_tpu_torch import faults, integrity, profiling, resilience, telemetry
 from sketches_tpu_torch.batched import (
     SketchSpec,
     SketchState,
@@ -170,6 +170,8 @@ def state_to_bytes(spec: SketchSpec, state: SketchState) -> List[bytes]:
     the host once: one copy each of the bins, zero counts and offsets.
     With the integrity layer armed, a corrupted state is refused before it
     is encoded (``IntegrityError`` or a report, per the mode)."""
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
+    _p0 = telemetry.clock() if profiling._ACTIVE else None
     if integrity._ACTIVE:
         # The wire format carries no checksum slot, so the encode-side check
         # is the last armed gate before the bytes leave the process.
@@ -208,6 +210,13 @@ def state_to_bytes(spec: SketchSpec, state: SketchState) -> List[bytes]:
         if has_zero[i]:
             parts.append(b"\x21" + struct.pack("<d", zero64[i]))
         blobs.append(b"".join(parts))
+    if _t0 is not None:
+        telemetry.finish_span("wire.encode_s", _t0)
+        telemetry.counter_inc("wire.blobs_encoded", float(len(blobs)))
+    if _p0 is not None:
+        # The copies to the host above already waited for the card: the
+        # row is the host-side codec walk, in the decode phase's encode tier.
+        profiling.record("decode", "encode", _p0)
     return blobs
 
 
@@ -777,6 +786,13 @@ def _decode_batch_native(scanner, dec: "_Decoder", blobs,
     zc, run_pos, run_len, run_j0, payload, n_careful = _scan_dense_native(
         scanner, blob_list, expected_mapping, base, status,
     )
+    if telemetry._ACTIVE:
+        telemetry.counter_inc("wire.native.decode_calls")
+        if n_careful:
+            telemetry.counter_inc("wire.native.careful_fallbacks", float(n_careful))
+            misses = int((status == 2).sum())
+            if misses:
+                telemetry.counter_inc("wire.native.template_miss", float(misses))
     ok = status == 0
     oki = np.nonzero(ok)[0]
     zsel = oki[zc[oki] != 0.0]
@@ -847,6 +863,8 @@ def bytes_to_state(
             f"Unknown errors mode {errors!r}; expected 'raise' or"
             " 'quarantine'"
         )
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
+    _p0 = telemetry.clock() if profiling._ACTIVE else None
     report = QuarantineReport(total=len(blobs)) if errors == "quarantine" else None
     dec = _Decoder(spec, len(blobs), device)
     expected_mapping = _mapping_field(spec)
@@ -875,12 +893,19 @@ def bytes_to_state(
     state = dec.finish()
     if integrity._ACTIVE:
         integrity.verify_state(spec, state, seam="wire.decode")
+    if _t0 is not None:
+        telemetry.finish_span("wire.decode_s", _t0, errors=errors)
+        telemetry.counter_inc("wire.blobs_decoded", float(len(blobs)))
+    if _p0 is not None:
+        profiling.record("decode", "decode", _p0, state)
     if report is None:
         return state
     if report.n_quarantined:
         resilience.bump("wire.quarantined", report.n_quarantined)
         for kind, n in report.counters.items():
             resilience.bump(f"wire.quarantined.{kind}", n)
+        if telemetry._ACTIVE:
+            telemetry.counter_inc("wire.blobs_quarantined", float(report.n_quarantined))
     return state, report
 
 

@@ -23,19 +23,22 @@ plain path (the port's engine names, ``kernel -> plain``, where the JAX
 package writes ``pallas -> xla``); the host tier degrades
 ``native -> python``.  Every tier computes the same answer.
 
-The ledger takes its timestamps from :func:`wall_time`.  The JAX package
-also mirrors each downgrade into its telemetry and tracing layers when
-they are armed; those layers are not ported yet.
+The ledger takes its timestamps from :func:`wall_time`, which reads
+``telemetry.wall_time`` (the port's one clock boundary).  Armed telemetry
+mirrors each downgrade as a ``resilience.downgrade`` counter and trace
+instant, and the armed flight recorder as a ``resilience.downgrade``
+event, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from sketches_tpu_torch import telemetry
 
 __all__ = [
     "SketchError",
@@ -170,9 +173,9 @@ class FabricUnavailable(SketchError):
 
 
 def wall_time() -> float:
-    """The ledger's clock: wall seconds (``time.time()``).  Timestamps are
-    operator-facing; nothing branches on them."""
-    return time.time()
+    """The ledger's clock: wall seconds through ``telemetry.wall_time``.
+    Timestamps are operator-facing; nothing branches on them."""
+    return telemetry.wall_time()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,7 +208,10 @@ def record_downgrade(
     """Record one degradation step into the process-wide health ledger.
 
     Never fails the caller: a downgrade is already a failure being
-    survived.  ``reason`` is cut to 500 characters.
+    survived.  ``reason`` is cut to 500 characters.  Armed telemetry
+    mirrors the event as a ``resilience.downgrade`` counter + trace
+    instant, so ledger and metrics snapshot agree; the armed flight
+    recorder keeps it as a ``resilience.downgrade`` event.
     """
     ev = DowngradeEvent(component, from_tier, to_tier, str(reason)[:500], wall_time())
     global _events_dropped
@@ -216,7 +222,19 @@ def record_downgrade(
             _events_dropped += 1
         _tiers[component] = to_tier
         _counters["downgrades"] = _counters.get("downgrades", 0) + 1
-    # Telemetry and tracing mirrors of the event go here with slice A9(b).
+    if telemetry._ACTIVE:
+        telemetry.event(
+            "resilience.downgrade",
+            component=component, from_tier=from_tier, to_tier=to_tier,
+        )
+    # Lazy import: tracing reaches this module's taxonomy at call time.
+    from sketches_tpu_torch import tracing
+
+    if tracing._ACTIVE:
+        tracing.record_event(
+            "resilience.downgrade", component=component,
+            from_tier=from_tier, to_tier=to_tier, reason=str(reason)[:200],
+        )
     return ev
 
 

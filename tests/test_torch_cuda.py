@@ -747,6 +747,79 @@ def test_kernel_errors_on_the_card_raise_and_never_demote(dev, monkeypatch):
     assert sk._kernel_ingest
 
 
+def test_armed_profiling_synchronizes_and_disarmed_never_does(dev, monkeypatch):
+    """Armed, each facade dispatch waits for its output on the card (the
+    host clock across ``torch.cuda.synchronize``); disarmed, no seam
+    synchronizes at all."""
+    from sketches_tpu_torch import profiling
+
+    waits = []
+    real = torch.cuda.synchronize
+
+    def spy(device=None):
+        waits.append(torch.device(device))
+        return real(device)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", spy)
+    sk, _ = _mixed_facades(dev, n=1024, seed=37)
+    v = np.random.RandomState(38).lognormal(0, 2, (1024, 256)).astype(np.float32)
+    sk.add(v)
+    sk.get_quantile_values([0.5, 0.99])
+    assert waits == []
+    profiling.enable()
+    try:
+        sk.add(v)
+        sk.get_quantile_values([0.5, 0.99])
+        measured = profiling.attribution()["measured"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert waits == [dev, dev]
+    assert measured["ingest/kernel"]["calls"] == 1
+    assert measured["query/overlap"]["calls"] == 1 and measured["query/overlap"]["total_s"] > 0
+
+
+def test_kernel_errors_inside_armed_observability_raise(dev, monkeypatch):
+    """A failure the card reports inside an armed profiling seam, or a kernel
+    error inside an accuracy audit's query, raises out of the call: it is
+    never audited as absent and no tier steps down."""
+    from sketches_tpu_torch import accuracy, profiling
+
+    sk, _ = _mixed_facades(dev, n=1024, seed=39)
+    v = np.random.RandomState(40).lognormal(0, 2, (1024, 256)).astype(np.float32)
+
+    def broken_wait(device=None):
+        raise RuntimeError("device-side assert")
+
+    profiling.enable()
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "synchronize", broken_wait)
+            with pytest.raises(RuntimeError, match="device-side assert"):
+                sk.get_quantile_values([0.5, 0.99])
+            with pytest.raises(RuntimeError, match="device-side assert"):
+                sk.add(v)
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert sk._query_disabled == set() and sk._kernel_ingest
+
+    def broken(*a, **k):
+        raise RuntimeError("launch failed")
+
+    accuracy.enable()
+    try:
+        accuracy.watch(sk, "card", streams=(0, 1), interval=1)
+        monkeypatch.setattr(kernels, "fused_quantile_tiles_overlap", broken)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            sk.add(v)
+        assert accuracy.summary()["audits"] == 0
+    finally:
+        accuracy.disable()
+        accuracy.reset()
+    assert sk._query_disabled == set()
+
+
 def test_unarmed_kernel_tests_recorded_no_downgrade(dev):
     """Runs last: no un-armed card test above left a downgrade behind.
     Each was checked on its own as it ran (armed tests clear the ledger,

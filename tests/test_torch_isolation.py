@@ -45,6 +45,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "from sketches_tpu_torch import parallel, resilience, faults, integrity, analysis\n"
         "from sketches_tpu_torch.analysis import registry\n"
         "from sketches_tpu_torch import checkpoint, ddsketch, native, pb, store\n"
+        "from sketches_tpu_torch import accuracy, profiling, telemetry, tracing\n"
         "from sketches_tpu_torch.pb import proto, wire\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
