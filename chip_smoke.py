@@ -78,7 +78,44 @@ the telemetry events and the flight recorder, and ``explain`` at least
 two causal events; the quick start's audits (real K5 queries) find no
 violation and a 128-bin facade fed lognormal(0, 6) rows reports collapse
 drift.  Disarmed again, facade ``add`` and the ``overlap`` query must come
-within 3% of the same run's numbers from before anything was armed.
+within 3% of the same run's numbers from before anything was armed (each
+side the least of three CUDA-event medians: ``settled_ms``).
+
+Then the time-window, serving and fabric phases (``phase_windows``,
+``phase_serve``, ``phase_fabric``), at sizes set by host work
+(fingerprints are host numpy, about 0.6 s a bucket at 65,536 x 512):
+
+* ``windows``: ``WindowedSketch(65_536, relative_accuracy=0.01,
+  n_bins=512, config=DEFAULT_LADDER)`` on a virtual clock, one mixed
+  ``[65_536, 256]`` batch every 2.5 s for 240 s; the 60-s, 300-s and
+  full-horizon answers equal ``oracle_quantile``, which decodes with the
+  plain ``batched.quantile`` (the first through the fold and K5, the
+  repeat through K5 on the cached fold), the 60-s one
+  within alpha of exact quantiles of its batches on sampled streams; the
+  exact ledger; an armed ``window.rotate_torn`` that changes nothing;
+  ``check_window`` clean and then reporting a flipped bin, the envelope
+  and a windowed checkpoint answering bit for bit (on a 4,096-stream ring
+  of the same traffic: the codec and the npz writer are host Python); a
+  uniform-collapse ring with collapse levels (0, 1, 2) within its
+  effective alpha, and a moment ring of 1,024 streams.
+* ``serve``: ``SketchServer`` with 16 dense tenants of 16,384 streams on
+  one spec (262,144 streams: one stacked K2 launch, equal to each
+  tenant's ``batched.quantile`` on the card bit for bit) and a windowed
+  tenant; 400 requests (rank-Zipf(1.1) tenants, a write per four reads,
+  deadlines, some inside the floor margin, answered on the floor: K2),
+  every cache hit held to a cold ``batched.quantile``, sheds with their
+  reasons, an armed straggler (the hedge, K2, equal to the primary) and
+  cache poison (quarantined, recomputed).
+* ``fabric``: ``ServeFabric`` of 4 virtual hosts and 3 copies, 4 pinned
+  tenants of 16,384 streams: two sync rounds, every primary read equal to
+  ``batched.quantile`` of the primary's state and every replica answer to
+  the primary's, a corrupted replica refused and the read re-homed,
+  partition and heal, ``fabric.replica_stale`` armed once, a handoff, and
+  a killed primary whose failover report closes the mass ledger exactly.
+
+In these three phases a call of the plain ``batched.quantile`` or of the
+``wxla`` tier on a card state, outside a comparison with a reference,
+fails the phase (``plain_quantile_on_card`` in each line).
 
 Every phase that arms nothing must leave ``resilience.health()`` without
 a downgrade (the host-tier and wire phases turn the native kill switch
@@ -112,6 +149,7 @@ turns; the ``checkpoint`` line carries them under ``writers``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -204,6 +242,28 @@ def event_ms(fn, *, warmup: int = 3, reps: int = 11, inner: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def settled_ms(fn, *, runs: int = 3, log: list | None = None, **kw) -> float:
+    """The least of ``runs`` :func:`event_ms` medians, each after a full
+    garbage collection and an idle card; ``log`` gets every median.  A
+    facade call's CUDA events also time the host's enqueue, and the
+    machine's host cores are shared: load there only ever lengthens a run,
+    while a cost of the call itself lengthens every run, so the least
+    median keeps the call's cost and drops the neighbours' (ROADMAP queue
+    C has the readings)."""
+    import gc
+
+    import torch
+
+    meds = []
+    for _ in range(runs):
+        gc.collect()
+        torch.cuda.synchronize()
+        meds.append(event_ms(fn, **kw))
+    if log is not None:
+        log.extend(meds)
+    return min(meds)
 
 
 def c_entry(lib, name: str):
@@ -2349,9 +2409,13 @@ def phase_observability(device, card: dict, times: dict) -> dict:
     for _ in range(OBS_BATCHES):
         timing.add(_mixed_batch(gen, N_STREAMS, device))
     v_time = _mixed_batch(gen, N_STREAMS, device)
-    before = {"add_ms": event_ms(lambda: timing.add(v_time), warmup=2, reps=21)}
+    medians = {"before": {"add_ms": [], "overlap_query_ms": []},
+               "after": {"add_ms": [], "overlap_query_ms": []}}
+    before = {"add_ms": settled_ms(lambda: timing.add(v_time), warmup=2, reps=21,
+                                   log=medians["before"]["add_ms"])}
     require(timing.get_quantile_values_resolved(QS)[0] == "overlap", "timing facade route")
-    before["overlap_query_ms"] = event_ms(lambda: timing.get_quantile_values(QS), reps=21)
+    before["overlap_query_ms"] = settled_ms(lambda: timing.get_quantile_values(QS), reps=21,
+                                            log=medians["before"]["overlap_query_ms"])
 
     # 1. Armed: the quick start, its ladder, the distributed floor.
     sk = facade(n_bins=N_BINS, key_offset=OBS_KEY_OFFSET)
@@ -2467,12 +2531,15 @@ def phase_observability(device, card: dict, times: dict) -> dict:
     accuracy.reset()
     resilience.reset()
     require(not tracing.enabled(), "the flight recorder stayed armed")
-    after = {"overlap_query_ms": event_ms(lambda: timing.get_quantile_values(QS), reps=21)}
-    after["add_ms"] = event_ms(lambda: timing.add(v_time), warmup=2, reps=21)
+    after = {"overlap_query_ms": settled_ms(lambda: timing.get_quantile_values(QS), reps=21,
+                                            log=medians["after"]["overlap_query_ms"])}
+    after["add_ms"] = settled_ms(lambda: timing.add(v_time), warmup=2, reps=21,
+                                 log=medians["after"]["add_ms"])
     cost = {k: after[k] / before[k] - 1.0 for k in before}
     for k, rel in cost.items():
         require(abs(rel) <= OBS_DISARMED_TOL,
-                f"disarmed {k}: {after[k]:.4f} ms against {before[k]:.4f} ms before arming")
+                f"disarmed {k}: {after[k]:.4f} ms against {before[k]:.4f} ms before arming"
+                f" (medians {medians})")
     require(tracing.events() == [] and profiling.attribution()["measured"] == {},
             "the disarmed layers recorded")
 
@@ -2507,7 +2574,7 @@ def phase_observability(device, card: dict, times: dict) -> dict:
         "accuracy": {"quickstart": audit, "collapse_drift_reports": len(drift),
                      "max_collapsed_mass_frac": max(fracs)},
         "tracing": {"explain_events": n_events, "explain": lines},
-        "disarmed": {"before": before, "after": after, "relative": cost},
+        "disarmed": {"before": before, "after": after, "relative": cost, "medians": medians},
         "launches": launches, "armed_s": armed_s,
         "seconds": time.perf_counter() - t_phase,
         "note": "armed rows: host clock across torch.cuda.synchronize (profiling.record);"
@@ -2518,6 +2585,764 @@ def phase_observability(device, card: dict, times: dict) -> dict:
     del sk, dist, timing, narrow, small
     torch.cuda.empty_cache()
     emit("observability", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Time windows, the serving tier and the serve fabric
+# ---------------------------------------------------------------------------
+
+# The windows path: the default ladder (12 x 5 s, 60 x 1 min, 24 x 1 h) at
+# 65,536 streams (fingerprints are host numpy over each covered bucket, so
+# the 1M quick start's width would cost about 10 s a bucket), one
+# [65,536, 256] mixed batch every 2.5 s of virtual time for 240 s.
+WIN_STREAMS = 1 << 16
+WIN_STEP_S = 2.5
+WIN_BATCHES = 96
+WIN_QS = (0.01, 0.25, 0.5, 0.9, 0.99)
+WIN_WINDOWS = (60.0, 300.0, None)
+# The envelope and checkpoint round trips run on the first streams of the
+# same traffic: the codec and the npz writer are host-bound Python.
+WIN_ROUNDTRIP_STREAMS = 4096
+AGG_ENV = "SKETCHES_TPU_WINDOW_AGG"
+# Backend rings: uniform collapse at the dense ring's width; moment at
+# 1,024 streams (its host maxent solve is about 2.18 ms a stream).
+WIN_ADAPTIVE_BATCHES = 30
+WIN_MOMENT_STREAMS = 1024
+WIN_MOMENT_BATCHES = 12
+# The serve path: 16 dense tenants of 16,384 streams on one spec (262,144
+# streams, one stacked K2 launch) and a windowed tenant of 16,384 streams.
+SERVE_TENANTS = 16
+SERVE_STREAMS = 1 << 14
+SERVE_REQUESTS = 400
+SERVE_ROUND = 10
+SERVE_QSETS = ((0.5, 0.99), (0.5, 0.9, 0.99), (0.99,))
+SERVE_ZIPF = 1.1
+# Serving-clock (virtual) seconds: a tick per request and the default
+# budget; a few requests carry 0.01 s, inside the 0.02 s floor margin.
+SERVE_TICK_S = 0.05
+SERVE_DEADLINE_S = 1.0
+# The fabric path: 4 virtual hosts, 3 copies, 4 tenants of 16,384 streams
+# on a pinned window (a pinned state crosses the wire exactly).
+FAB_HOSTS = 4
+FAB_COPIES = 3
+FAB_TENANTS = 4
+
+
+class _Uncounted:
+    """Launches and plain quantile calls inside this block (comparisons
+    with a reference) leave the launch counters and the
+    :class:`_PlainOnCard` count as they were."""
+
+    def __enter__(self):
+        from sketches_tpu_torch import kernels
+
+        self._saved = {f: f.launches for f in kernels._KERNEL_WRAPPERS}
+        self._plain = _PlainOnCard.calls
+
+    def __exit__(self, *exc):
+        for f, n in self._saved.items():
+            f.launches = n
+        _PlainOnCard.calls = self._plain
+        return False
+
+
+class _PlainOnCard:
+    """Counts calls of the plain full-window queries on a card state
+    between :meth:`start` and :meth:`stop`, outside :class:`_Uncounted`
+    blocks: ``batched.quantile`` and the windowed ``wxla`` tier
+    (``kernels.quantile_windowed_xla``), which no main path may run on the
+    card (the facades' floor, the serving tier's floor, hedge and stacked
+    flush and the window fold-decode answer with K2 there, the ladder with
+    K3-K5)."""
+
+    calls = 0
+
+    def start(self) -> "_PlainOnCard":
+        from sketches_tpu_torch import batched, kernels
+
+        _PlainOnCard.calls = 0
+        self._real = [(batched, "quantile", batched.quantile),
+                      (kernels, "quantile_windowed_xla", kernels.quantile_windowed_xla)]
+        for mod, name, real in self._real:
+            def counted(spec, state, *a, _real=real, **k):
+                if state.device.type == "cuda":
+                    _PlainOnCard.calls += 1
+                return _real(spec, state, *a, **k)
+
+            setattr(mod, name, counted)
+        return self
+
+    def stop(self) -> None:
+        for mod, name, real in self._real:
+            setattr(mod, name, real)
+
+    def check(self, phase: str) -> int:
+        require(_PlainOnCard.calls == 0,
+                f"{phase}: the main path ran a plain quantile on the card"
+                f" {_PlainOnCard.calls} times")
+        return _PlainOnCard.calls
+
+
+class _FingerprintMeter:
+    """Counts ``integrity.fingerprint`` calls and their host seconds between
+    :meth:`start` and :meth:`stop`."""
+
+    def start(self) -> "_FingerprintMeter":
+        from sketches_tpu_torch import integrity
+
+        self.calls, self.seconds = 0, 0.0
+        self._real = integrity.fingerprint
+
+        def counted(spec, state):
+            t0 = time.perf_counter()
+            try:
+                return self._real(spec, state)
+            finally:
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+
+        integrity.fingerprint = counted
+        return self
+
+    def stop(self) -> None:
+        from sketches_tpu_torch import integrity
+
+        integrity.fingerprint = self._real
+
+
+class _agg_off:
+    """``SKETCHES_TPU_WINDOW_AGG=0`` while windowed rings are built (the
+    switch is read at construction)."""
+
+    def __enter__(self):
+        os.environ[AGG_ENV] = "0"
+
+    def __exit__(self, *exc):
+        del os.environ[AGG_ENV]
+        return False
+
+
+def _sync_s(fn):
+    """Host seconds of ``fn()`` up to the card finishing it -> (s, result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _covered_batches(w, plan, stamps):
+    """Indices of the batches (ingested at ``stamps``) inside ``plan``'s
+    buckets: each batch sits in its rung-0 slice while that slice is on the
+    ring, else in the coarser bucket it retired into."""
+    live = {(r, b) for r, b, _m in w.buckets()}
+    keys = set(plan.keys)
+    out = []
+    for i, t in enumerate(stamps):
+        for r in range(w.config.n_rungs):
+            key = (r, int(np.floor(t / w.config.slices_s[r])))
+            if key in live:
+                if key in keys:
+                    out.append(i)
+                break
+    return out
+
+
+def _window_ring_checks(w, device) -> dict:
+    """The round trips of a ring: ``check_window`` clean, then one flipped
+    bin reported; the envelope and a checkpoint answering bit for bit."""
+    import tempfile
+
+    import torch
+
+    from sketches_tpu_torch import checkpoint, faults, integrity, windows
+    from sketches_tpu_torch.backends import wirefmt
+
+    out = {}
+    out["check_window_s"], report = _sync_s(lambda: integrity.check_window(w))
+    require(not report, f"windows: check_window on a clean ring: {report.violations[:3]}")
+    bucket = next(b for r in w._rungs for b in r.values())
+    stream = int(torch.argmax(bucket.state.count))
+    bin_ = int(torch.argmax(bucket.state.bins_pos[stream]))
+    clean = bucket.state
+    bucket.state = faults.apply_state_bitflips(clean, ((0, stream, bin_, 30),))
+    try:
+        report = integrity.check_window(w)
+    finally:
+        bucket.state = clean
+    require(bool(report) and stream in report.indices,
+            f"windows: a flipped bin in bucket {bucket.id} was not reported")
+    out["flipped_bin_report"] = {"stream": stream, "counters": report.counters}
+    qs = list(WIN_QS)
+    want = w.quantile(qs, window=None)
+    with _Uncounted():
+        require(torch.equal(want, windows.oracle_quantile(w, qs, window=None)),
+                "windows: the re-merge lane differs from oracle_quantile")
+    out["envelope_encode_s"], blob = _sync_s(lambda: wirefmt.windowed_to_bytes(w))
+    with _agg_off():
+        out["envelope_decode_s"], back = _sync_s(lambda: wirefmt.windowed_from_bytes(
+            w.spec, blob, clock=windows.VirtualClock(w._clock())))
+    require(back.ledger() == w.ledger() and back.buckets() == w.buckets(),
+            "windows: the envelope round trip changed the ledger")
+    require(torch.equal(back.quantile(qs, window=None), want),
+            "windows: the envelope round trip answers differently")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "ring.npz")
+        out["checkpoint_save_s"], _ = _sync_s(lambda: checkpoint.save_windowed(path, w))
+        with _agg_off():
+            out["checkpoint_restore_s"], back = _sync_s(lambda: checkpoint.restore_windowed(
+                path, clock=windows.VirtualClock(w._clock())))
+        out["checkpoint_bytes"] = Path(path).stat().st_size
+    require(back.ledger() == w.ledger() and back.buckets() == w.buckets(),
+            "windows: the checkpoint round trip changed the ledger")
+    require(torch.equal(back.quantile(qs, window=None), want),
+            "windows: the checkpoint round trip answers differently")
+    out["envelope_bytes"] = len(blob)
+    return out
+
+
+def _adaptive_ring(device) -> dict:
+    """A uniform-collapse ring on the default ladder with collapse levels
+    (0, 1, 2): 65,536 streams, a fixed quarter of them lognormal(0, 6), 30
+    batches; the full-horizon answer equal to the oracle and, on sampled
+    streams, within the fold's per-stream effective alpha of the exact
+    lower quantiles (``_adaptive_alpha_check``: clamped mass bracketed, as
+    in the backends phase)."""
+    import torch
+
+    from sketches_tpu_torch import batched, windows
+
+    spec = batched.SketchSpec(relative_accuracy=ALPHA, n_bins=N_BINS, backend="uniform_collapse")
+    cfg = windows.WindowConfig(windows.DEFAULT_LADDER.slices_s, windows.DEFAULT_LADDER.lengths,
+                               collapse_levels=(0, 1, 2))
+    clk = windows.VirtualClock(0.0)
+    w = windows.WindowedSketch(WIN_STREAMS, spec=spec, config=cfg, clock=clk)
+    sigma, heavy, gen = _heavy_traffic(device, WIN_STREAMS, SEED + 12)
+    sample = torch.randperm(WIN_STREAMS, device=device, generator=gen)[:N_SAMPLED]
+    kept, add_s = [], []
+    for _ in range(WIN_ADAPTIVE_BATCHES):
+        clk.advance(WIN_STEP_S)
+        v = _lognormal_rows(sigma, gen)
+        kept.append(v[sample])
+        dt, _ = _sync_s(lambda: w.add(v))
+        add_s.append(dt)
+        del v
+    led = w.ledger()
+    require(led["total"] == WIN_ADAPTIVE_BATCHES * WIN_STREAMS * BATCH
+            and led["total"] == led["live"] + led["retired"],
+            f"windows: adaptive ledger not exact: {led}")
+    qs = list(CHECK_QS)
+    plan = w.window_plan(None)
+    est = w.query_plan(plan, qs)
+    with _Uncounted():
+        ref = windows.oracle_quantile(w, qs, window=None)
+        folded = windows._fold_state_for(spec)[windows._fold_mode(spec, plan.states)](
+            plan.states)
+    require(torch.equal(est, ref), "windows: adaptive answer differs from oracle_quantile")
+    base = folded.base
+    checked, outside, clamped, bracketed, worst = _adaptive_alpha_check(
+        spec, folded.level[sample], base.key_offset[sample], base.collapsed_low[sample],
+        base.collapsed_high[sample], torch.cat(kept, dim=1), est[sample], qs)
+    return {
+        "streams": WIN_STREAMS, "batches": WIN_ADAPTIVE_BATCHES, "ledger": led,
+        "rung_effective_alpha": w.rung_effective_alpha(),
+        "levels": torch.bincount(folded.level).tolist(),
+        "heavy_streams": int(heavy.sum()),
+        "alpha_check": {"checked": checked, "outside_window": outside,
+                        "clamped_streams": clamped, "bracketed": bracketed,
+                        "max_err_over_bound": worst},
+        "add_ms_median": statistics.median(add_s) * 1e3,
+    }
+
+
+def _moment_ring(device, gen) -> dict:
+    """A moment ring of 1,024 streams: ledger exact, answers equal to the
+    oracle (the host solve over the same fold)."""
+    import torch
+
+    from sketches_tpu_torch import batched, windows
+
+    spec = batched.SketchSpec(relative_accuracy=ALPHA, backend="moment", n_moments=12)
+    clk = windows.VirtualClock(0.0)
+    w = windows.WindowedSketch(WIN_MOMENT_STREAMS, spec=spec, clock=clk)
+    for _ in range(WIN_MOMENT_BATCHES):
+        clk.advance(WIN_STEP_S)
+        w.add(torch.empty((WIN_MOMENT_STREAMS, BATCH), device=device)
+              .log_normal_(0.0, 2.0, generator=gen))
+    led = w.ledger()
+    require(led["total"] == WIN_MOMENT_BATCHES * WIN_MOMENT_STREAMS * BATCH
+            and led["total"] == led["live"] + led["retired"], f"windows: moment ledger {led}")
+    qs = list(MOMENT_QS)
+    dt, got = _sync_s(lambda: w.quantile(qs, window=60.0))
+    require(np.array_equal(got, windows.oracle_quantile(w, qs, window=60.0), equal_nan=True),
+            "windows: moment answer differs from oracle_quantile")
+    require(bool(np.isfinite(got).all()), "windows: moment answers not finite")
+    return {"streams": WIN_MOMENT_STREAMS, "batches": WIN_MOMENT_BATCHES, "ledger": led,
+            "query_s": dt}
+
+
+def phase_windows(device) -> dict:
+    """``WindowedSketch`` on the default ladder at 65,536 x 512 on the card:
+    96 mixed batches over 240 s of virtual time, window queries against
+    ``oracle_quantile`` bit for bit and against exact quantiles, the exact
+    ledger, an armed torn rotation, round trips, and the uniform-collapse
+    and moment rings."""
+    import torch
+
+    from sketches_tpu_torch import BatchedDDSketch, faults, integrity, kernels, resilience
+    from sketches_tpu_torch import windows
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    clk = windows.VirtualClock(0.0)
+    w = windows.WindowedSketch(WIN_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS,
+                               config=windows.DEFAULT_LADDER, clock=clk)
+    # The round-trip ring takes the full re-merge lane (the
+    # SKETCHES_TPU_WINDOW_AGG=0 kill switch, read at construction): its
+    # window answers fold every covered bucket and decode with K2, and
+    # its restored copies, built in the same lane, must answer alike.
+    with _agg_off():
+        rt = windows.WindowedSketch(WIN_ROUNDTRIP_STREAMS, relative_accuracy=ALPHA,
+                                    n_bins=N_BINS, config=windows.DEFAULT_LADDER, clock=clk)
+    require(rt.agg_stats()["enabled"] == 0.0, "windows: the kill switch was not read")
+    require(w.device.type == "cuda", "windows: the ring is not on the card")
+    sample = torch.randperm(WIN_STREAMS, device=device, generator=gen)[:N_SAMPLED]
+    kernels.reset_launch_counts()
+    kept, stamps, roll_ms, add_ms = [], [], [], []
+    fps = _FingerprintMeter().start()
+    plain = _PlainOnCard().start()
+    try:
+        for _ in range(WIN_BATCHES):
+            clk.advance(WIN_STEP_S)
+            v = _mixed_batch(gen, WIN_STREAMS, device)
+            kept.append(v[sample])
+            stamps.append(clk())
+            rotations = w.ledger()["rotations"]
+            dt, _ = _sync_s(lambda: w._roll(clk()))
+            if w.ledger()["rotations"] > rotations:
+                roll_ms.append(dt * 1e3)
+            dt, _ = _sync_s(lambda: w.add(v))
+            add_ms.append(dt * 1e3)
+            rt.add(v[:WIN_ROUNDTRIP_STREAMS])
+            del v
+        ingested = float(WIN_BATCHES * WIN_STREAMS * BATCH)
+        led = w.ledger()
+        require(led["total"] == ingested and led["live"] + led["retired"] == ingested
+                and w.total_mass == ingested, f"windows: ledger not exact: {led}")
+        qs = list(WIN_QS)
+        answers = {}
+        for win in WIN_WINDOWS:
+            plan_s, plan = _sync_s(lambda: w.window_plan(win))
+            before = kernels.launch_counts()
+            first_s, got = _sync_s(lambda: w.query_plan(plan, qs))
+            repeat_s, again = _sync_s(lambda: w.quantile(qs, window=win))
+            after = kernels.launch_counts()
+            with _Uncounted():
+                want = windows.oracle_quantile(w, qs, window=win)
+            require(torch.equal(got, want) and torch.equal(again, want),
+                    f"windows: window={win} differs from oracle_quantile")
+            require(bool(torch.isfinite(got).all()) and got.shape == (WIN_STREAMS, len(qs)),
+                    f"windows: window={win} answers not finite [N, Q]")
+            # The fold's throwaway facade decodes both: its overlap route,
+            # once each (the first query also plans it).
+            k5 = after["fused_quantile_tiles_overlap"] - before["fused_quantile_tiles_overlap"]
+            require(after["fused_quantile"] == before["fused_quantile"] and k5 == 2,
+                    f"windows: the queries at window={win} did not decode through K5")
+            answers[str(win)] = {
+                "covered_buckets": plan.n_covered, "components": len(plan.components or ()),
+                "plan_s": plan_s, "first_query_ms": first_s * 1e3,
+                "repeat_query_ms": repeat_s * 1e3,
+            }
+            if win == WIN_WINDOWS[0]:
+                plan60, got60 = plan, got
+        # The 60-s window against exact lower quantiles of its batches.
+        idx = _covered_batches(w, plan60, stamps)
+        exact = _exact_lower(torch.cat([kept[i] for i in idx], dim=1), qs)
+        est = got60[sample].double()
+        ulp = torch.finfo(torch.float32).eps * exact.abs()
+        bad = (est - exact).abs() > ALPHA * exact.abs() + ulp
+        require(not bool(bad.any()), f"windows: {int(bad.sum())} 60-s answers outside alpha")
+        rel60 = ((est - exact).abs() / exact.abs()).amax().item()
+        # Repeat query (K5 on the cached fold) against a plain facade query and
+        # a K2 decode of the same folded state, all by CUDA events.
+        folded = w._agg_fold(plan60)
+        fac = BatchedDDSketch(WIN_STREAMS, spec=w.spec, state=folded)
+        require(fac.state is folded and fac._window_plan is None and not fac._tile_plans,
+                "windows: the decode facade copied or pre-planned the fold")
+        with _Uncounted():
+            timing = {
+                "repeat_window_query_ms": event_ms(lambda: w.query_plan(plan60, qs)),
+                "plain_facade_query_ms": event_ms(lambda: fac.get_quantile_values(qs)),
+                "k2_decode_ms": event_ms(lambda: kernels.floor_quantile(w.spec, folded, qs)),
+                "fold_and_decode_ms": event_ms(lambda: (
+                    w.__setattr__("_agg_fold_cache", None), w.query_plan(plan60, qs)), reps=5),
+            }
+        w.query_plan(plan60, qs)  # the fold cache back in place
+        # An armed torn rotation mutates nothing.
+        before = (w.buckets(), w.ledger(), integrity.fingerprint(w.spec, w._live.state))
+        clk.advance(w.config.slices_s[0])  # into the next slice: a rotation
+        v = _mixed_batch(gen, WIN_STREAMS, device)
+        faults.arm(faults.WINDOW_ROTATE_TORN, times=1)
+        try:
+            expect_raise(resilience.InjectedFault, lambda: w.add(v), "windows: torn rotation")
+        finally:
+            faults.disarm()
+        after = (w.buckets(), w.ledger(), integrity.fingerprint(w.spec, w._live.state))
+        require(after[0] == before[0] and after[1] == before[1]
+                and np.array_equal(after[2], before[2]),
+                "windows: a torn rotation changed the ring")
+        w.add(v)
+        led = w.ledger()
+        require(led["total"] == ingested + WIN_STREAMS * BATCH
+                and led["total"] == led["live"] + led["retired"],
+                f"windows: ledger after the completed rotation: {led}")
+        del v
+        checks = _window_ring_checks(rt, device)
+        backends = {"uniform_collapse": _adaptive_ring(device),
+                    "moment": _moment_ring(device, gen)}
+    finally:
+        fps.stop()
+        plain.stop()
+    plain_on_card = plain.check("windows")
+    launches = kernels.launch_counts()
+    for name in ("ingest_histogram", "fused_quantile", "fused_quantile_tiles_overlap"):
+        require(launches[name] > 0, f"windows: {name} never launched")
+    out = {
+        "streams": WIN_STREAMS, "batches": WIN_BATCHES + 1, "ledger": led,
+        "buckets": len(w.buckets()), "windows": answers, "max_rel_err_60s_vs_exact": rel60,
+        "batches_in_60s": len(idx), "rotation_ms_median": statistics.median(roll_ms),
+        "rotations_timed": len(roll_ms), "add_ms_median": statistics.median(add_ms),
+        "agg": w.agg_stats(), "times": timing, "roundtrip_ring": {
+            "streams": WIN_ROUNDTRIP_STREAMS, **checks},
+        "backends": backends, "fingerprints": {"calls": fps.calls, "host_s": fps.seconds},
+        "plain_quantile_on_card": plain_on_card,
+        "launches": launches, "seconds": time.perf_counter() - t_phase,
+    }
+    del w, rt, kept, fac, folded
+    torch.cuda.empty_cache()
+    emit("windows", **out)
+    return out
+
+
+def _zipf_tenants(rng, names, n):
+    """``n`` tenant picks, rank-Zipf(1.1) over ``names`` (rank 1 hottest)."""
+    ranks = np.arange(1, len(names) + 1, dtype=np.float64)
+    p = ranks ** -SERVE_ZIPF
+    return [names[i] for i in rng.choice(len(names), size=n, p=p / p.sum())]
+
+
+def phase_serve(device) -> dict:
+    """``SketchServer`` on the card: 16 dense tenants of 16,384 streams on
+    one spec and a windowed tenant; 400 requests (Zipf tenants, one write
+    per four reads, deadlines on every request, a few inside the floor
+    margin), the stacked flush held to each tenant's own quantile, cache
+    hits to cold recomputes, an armed straggler and cache poison, sheds
+    with their reasons."""
+    import torch
+
+    from sketches_tpu_torch import batched, faults, kernels, resilience, serve, windows
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    rng = np.random.default_rng(SEED + 10)
+    clk = windows.VirtualClock(0.0)
+    cfg = serve.ServeConfig(max_queue_depth=SERVE_TENANTS, tenant_quota=4,
+                            default_deadline_s=SERVE_DEADLINE_S, floor_margin_s=0.02)
+    srv = serve.SketchServer(cfg, clock=clk)
+    names = [f"t{i:02d}" for i in range(SERVE_TENANTS)]
+    kernels.reset_launch_counts()
+    for name in names:
+        srv.add_tenant(name, SERVE_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS)
+    srv.add_tenant("win", SERVE_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS,
+                   window=windows.WindowConfig((5.0, 60.0), (12, 5)))
+    require(len({srv.tenant(n).spec for n in names}) == 1
+            and srv.tenant(names[0]).device.type == "cuda",
+            "serve: tenants do not share one spec on the card")
+    for name in names + ["win"]:
+        for _ in range(2):
+            clk.advance(1.0)
+            srv.ingest(name, _mixed_batch(gen, SERVE_STREAMS, device))
+    fps = _FingerprintMeter().start()
+    plain = _PlainOnCard().start()
+    try:
+        # One stacked flush over all 262,144 streams: one K2 launch.
+        qs = SERVE_QSETS[1]
+        tickets = [srv.submit(n, qs) for n in names]
+        before = kernels.launch_counts()["fused_quantile"]
+        flush_s, _ = _sync_s(srv.flush)
+        require(kernels.launch_counts()["fused_quantile"] == before + 1
+                and srv.stats()["fused_dispatches"] == 1,
+                "serve: the 16-tenant flush was not one stacked K2 launch")
+        cpu_bit, cpu_diff = True, 0.0
+        with _Uncounted():
+            for tk in tickets:
+                f = srv.tenant(tk.tenant)
+                got = torch.from_numpy(tk.result.values)
+                require(tk.result.tier == "xla" and not tk.result.hedged,
+                        f"serve: stacked flush answered {tk.result.tier}")
+                require(torch.equal(got, batched.quantile(f.spec, f.state, qs).cpu()),
+                        "serve: the stacked flush differs from batched.quantile on the card")
+                cpu = batched.quantile(f.spec, f.state.map(lambda t: t.cpu()), qs)
+                cpu_bit = cpu_bit and torch.equal(got, cpu)
+                cpu_diff = max(cpu_diff, require_rel(got, cpu, 1e-6, "serve: vs the CPU copy"))
+            group = [srv._tenant(n) for n in names]
+            stacked_ms = event_ms(lambda: srv._dispatch_group(group, qs), reps=5)
+            tenant_ms = event_ms(lambda: srv._dispatch_tenant(group[0], qs, False), reps=5)
+        # Faults: one straggler hedged, one poisoned cache entry.
+        hot, hot_qs = names[0], SERVE_QSETS[2]
+        cold = srv.tenant(hot).get_quantile_values(list(hot_qs)).cpu().numpy()
+        faults.arm(faults.SERVE_STRAGGLER, times=1)
+        try:
+            res = srv.query(hot, hot_qs)
+        finally:
+            faults.disarm()
+        require(res.hedged and res.tier == "xla" and np.array_equal(res.values, cold),
+                "serve: the hedged straggler differs from the primary")
+        hedges = [e for e in resilience.health()["downgrades"]
+                  if e["component"] == "serve.dispatch"]
+        require(len(hedges) == 1, "serve: the hedge was not recorded once")
+        resilience.reset()
+        require(srv.query(hot, hot_qs).cached, "serve: no cache entry to poison")
+        faults.arm(faults.SERVE_CACHE_POISON, times=1)
+        try:
+            res = srv.query(hot, hot_qs)
+        finally:
+            faults.disarm()
+        require(not res.cached and np.array_equal(res.values, cold)
+                and srv.stats()["cache_poisoned"] == 1,
+                "serve: the poisoned entry was not quarantined and recomputed")
+        # The traffic: rank-Zipf tenants (the windowed one fourth), a write
+        # per four reads, reads submitted in rounds and flushed; every fifth
+        # round runs until the queue sheds on depth.
+        order = _zipf_tenants(rng, names[:3] + ["win"] + names[3:], SERVE_REQUESTS)
+        latencies, sheds = [], {}
+        hits = n_reads = n_writes = n_window = near = rounds = 0
+        pending = []
+
+        def flush():
+            nonlocal pending, rounds
+            srv.flush()
+            done = time.perf_counter()
+            for tk, t0 in pending:
+                latencies.append(done - t0)
+            pending, rounds = [], rounds + 1
+
+        faults.arm(faults.SERVE_QUEUE_OVERFLOW, times=1)
+        for i, name in enumerate(order):
+            clk.advance(SERVE_TICK_S)
+            if i % 5 == 4:
+                srv.ingest(name, _mixed_batch(gen, SERVE_STREAMS, device))
+                n_writes += 1
+                continue
+            n_reads += 1
+            qs_i = SERVE_QSETS[int(rng.integers(len(SERVE_QSETS)))]
+            if name == "win":
+                n_window += 1
+                t0 = time.perf_counter()
+                res = srv.quantile("win", qs_i, window=60.0)
+                latencies.append(time.perf_counter() - t0)
+                with _Uncounted():
+                    want = windows.oracle_quantile(srv.tenant("win"), qs_i, window=60.0)
+                require(np.array_equal(res.values, want.cpu().numpy(), equal_nan=True),
+                        "serve: windowed answer differs from oracle_quantile")
+                continue
+            deadline = 0.01 if i % 37 == 0 else None
+            near += deadline is not None
+            t0 = time.perf_counter()
+            try:
+                tk = srv.submit(name, qs_i, deadline_s=deadline)
+            except serve.ServeOverload as e:
+                require(e.reason in ("tenant_quota", "queue_depth", "injected")
+                        and e.tenant == name, f"serve: shed without a reason: {e!r}")
+                sheds[e.reason] = sheds.get(e.reason, 0) + 1
+                if e.reason == "queue_depth":
+                    flush()
+                continue
+            if tk.result is not None:  # a cache hit at admission
+                latencies.append(time.perf_counter() - t0)
+                hits += 1
+                with _Uncounted():
+                    f = srv.tenant(name)
+                    want = batched.quantile(f.spec, f.state, list(tk.qs))
+                require(np.array_equal(tk.result.values, want.cpu().numpy()),
+                        "serve: a cache hit differs from a cold recompute")
+                continue
+            pending.append((tk, t0))
+            if len(pending) >= SERVE_ROUND and rounds % 5 != 4:
+                flush()
+        faults.disarm()
+        flush()
+        stats = srv.stats()
+        require(set(sheds) == {"tenant_quota", "queue_depth", "injected"}
+                and sheds["injected"] == 1, f"serve: sheds {sheds}")
+    finally:
+        fps.stop()
+        plain.stop()
+        faults.disarm()
+    plain_on_card = plain.check("serve")
+    launches = kernels.launch_counts()
+    for name in ("ingest_histogram", "fused_quantile", "fused_quantile_tiles_overlap"):
+        require(launches[name] > 0, f"serve: {name} never launched")
+    lat = sorted(latencies)
+    out = {
+        "tenants": SERVE_TENANTS, "streams_per_tenant": SERVE_STREAMS,
+        "stacked_streams": SERVE_TENANTS * SERVE_STREAMS,
+        "stacked_flush_s": flush_s, "stacked_dispatch_ms": stacked_ms,
+        "tenant_dispatch_ms": tenant_ms, "cpu_copy_bit_identical": cpu_bit,
+        "cpu_copy_max_abs_diff": cpu_diff,
+        "requests": {"reads": n_reads, "writes": n_writes, "window_reads": n_window,
+                     "near_floor": near},
+        "latency_ms": {"p50": 1e3 * lat[len(lat) // 2],
+                       "p99": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]},
+        "cache_hit_rate": stats["cache_hits"] / max(1, stats["cache_hits"]
+                                                    + stats["cache_misses"]),
+        "cache_hits_checked": hits, "sheds": sheds, "rounds": rounds, "stats": stats,
+        "fingerprints": {"calls": fps.calls, "host_s": fps.seconds},
+        "plain_quantile_on_card": plain_on_card,
+        "launches": launches, "seconds": time.perf_counter() - t_phase,
+    }
+    del srv
+    torch.cuda.empty_cache()
+    emit("serve", **out)
+    return out
+
+
+def phase_fabric(device) -> dict:
+    """``ServeFabric`` of 4 virtual hosts, 3 copies, 4 tenants of 16,384
+    streams on the card: ingest, two sync rounds, a primary killed (the
+    dropped mass closes the ledger exactly), a corrupted replica refused,
+    partition and heal, a handoff, ``fabric.replica_stale`` armed once;
+    every replica answer equal to the primary's bit for bit."""
+    import torch
+
+    from sketches_tpu_torch import batched, fabric, faults, kernels, resilience, windows
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    clk = windows.VirtualClock(0.0)
+    fab = fabric.ServeFabric(fabric.FabricConfig(n_hosts=FAB_HOSTS, replication=FAB_COPIES,
+                                                 staleness_s=600.0), clock=clk)
+    names = [f"f{i}" for i in range(FAB_TENANTS)]
+    qs = SERVE_QSETS[1]
+    kernels.reset_launch_counts()
+    fps = _FingerprintMeter().start()
+    plain = _PlainOnCard().start()
+    try:
+        t0 = time.perf_counter()
+        for n in names:
+            fab.add_tenant(n, SERVE_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS,
+                           key_offset=-256)
+        place_s = time.perf_counter() - t0
+        require(all(fab.placement(n) == fabric.placement(n, FAB_HOSTS, FAB_COPIES)
+                    for n in names), "fabric: placement differs from rendezvous")
+        ingested = {n: 0.0 for n in names}
+
+        def ingest(n):
+            fab.ingest(n, _mixed_batch(gen, SERVE_STREAMS, device))
+            ingested[n] += float(SERVE_STREAMS * BATCH)
+
+        sync_s = []
+        for _round in range(2):
+            for n in names:
+                ingest(n)
+            dt, synced = _sync_s(fab.sync)
+            require(synced == FAB_TENANTS * (FAB_COPIES - 1), f"fabric: synced {synced}")
+            sync_s.append(dt / synced)
+        read_ms, primary = [], {}
+        for n in names:
+            dt, res = _sync_s(lambda: fab.quantile(n, qs))
+            read_ms.append(dt * 1e3)
+            require(res.role == "primary", f"fabric: {n} read from {res.role}")
+            f = fab.host_server(fab.placement(n)[0]).tenant(n)
+            with _Uncounted():
+                want = batched.quantile(f.spec, f.state, qs).cpu().numpy()
+            require(np.array_equal(res.values, want),
+                    f"fabric: the primary read of {n} differs from batched.quantile")
+            primary[n] = res.values
+        # Every replica answers the primary's values bit for bit.
+        for n in names:
+            for h in fab.placement(n)[1:]:
+                got = fab.host_server(h).query(n, qs).values
+                require(np.array_equal(got, primary[n]),
+                        f"fabric: replica of {n} on host {h} differs from the primary")
+        # A corrupted replica is refused and the read re-homes.
+        victim = names[0]
+        pl = fab.placement(victim)
+        facade = fab.host_server(pl[1]).tenant(victim)
+        stream = int(torch.argmax(facade.state.count))
+        bin_ = int(torch.argmax(facade.state.bins_pos[stream]))
+        facade.state = faults.apply_state_bitflips(facade.state, ((0, stream, bin_, 30),))
+        fab.partition_host(pl[0])
+        dt, res = _sync_s(lambda: fab.quantile(victim, qs))
+        require(res.role == "replica" and res.host == pl[2] and res.degraded
+                and np.array_equal(res.values, primary[victim]),
+                "fabric: the corrupted replica was not refused and re-homed")
+        require(fab.stats()["stale_refusals"] == 1, "fabric: refusal not counted")
+        expect_raise(resilience.FabricUnavailable, lambda: fab.ingest(
+            victim, _mixed_batch(gen, SERVE_STREAMS, device)), "fabric: partitioned write")
+        heal_s, resynced = _sync_s(lambda: fab.heal_partition(pl[0]))
+        require(fab.sync(victim) == FAB_COPIES - 1, "fabric: the repair sync failed")
+        # The armed replica-stale site: corrupted at read time, refused.
+        fab.partition_host(pl[0])
+        faults.arm(faults.FABRIC_REPLICA_STALE, times=1, seed=3)
+        try:
+            res = fab.quantile(victim, qs)
+        finally:
+            faults.disarm()
+        require(np.array_equal(res.values, primary[victim]),
+                "fabric: the armed replica-stale read answered differently")
+        fab.heal_partition(pl[0])
+        fab.sync(victim)
+        # Handoff of a replica to the free host.
+        free = next(h for h in fab.live_hosts() if h not in fab.placement(victim))
+        handoff_s, rep = _sync_s(lambda: fab.handoff_replica(victim, fab.placement(victim)[1],
+                                                               free))
+        require(rep.cache_preserved and free in fab.placement(victim), "fabric: handoff")
+        # Kill a primary after post-sync ingest: the ledger closes exactly.
+        killed = fab.placement(names[1])[0]
+        for n in names:
+            if fab.placement(n)[0] == killed:
+                ingest(n)
+        expected = {n: fab.ledger(n)["expected_count"].copy() for n in names}
+        failover_s, reports = _sync_s(lambda: fab.kill_host(killed))
+        require(reports, "fabric: killing a primary produced no failover")
+        for r in reports:
+            led = fab.ledger(r.tenant)
+            require(r.exact and float(r.dropped_count.sum()) == float(SERVE_STREAMS * BATCH)
+                    and np.array_equal(r.dropped_count + led["expected_count"],
+                                       expected[r.tenant])
+                    and led["expected_total"] + led["dropped_total"] == ingested[r.tenant],
+                    f"fabric: failover of {r.tenant} did not close the ledger exactly")
+            res = fab.quantile(r.tenant, qs)
+            require(res.role in ("primary", "cache") and bool(np.isfinite(res.values).all()),
+                    f"fabric: {r.tenant} does not answer after failover")
+        stats = fab.stats()
+    finally:
+        fps.stop()
+        plain.stop()
+        faults.disarm()
+    plain_on_card = plain.check("fabric")
+    launches = kernels.launch_counts()
+    for name in ("ingest_histogram", "fused_quantile_tiles_overlap"):
+        require(launches[name] > 0, f"fabric: {name} never launched")
+    out = {
+        "hosts": FAB_HOSTS, "copies": FAB_COPIES, "tenants": FAB_TENANTS,
+        "streams_per_tenant": SERVE_STREAMS, "place_s": place_s,
+        "sync_s_per_replica": sync_s, "read_ms": read_ms, "heal_s": heal_s,
+        "heal_resynced": resynced, "handoff_s": handoff_s, "failover_s": failover_s,
+        "failovers": [{"tenant": r.tenant, "from": r.from_host, "to": r.to_host,
+                       "dropped_total": r.dropped_total, "exact": r.exact}
+                      for r in reports],
+        "stats": stats, "fingerprints": {"calls": fps.calls, "host_s": fps.seconds},
+        "plain_quantile_on_card": plain_on_card,
+        "launches": launches, "seconds": time.perf_counter() - t_phase,
+    }
+    del fab
+    torch.cuda.empty_cache()
+    emit("fabric", **out)
     return out
 
 
@@ -2609,10 +3434,17 @@ def main(argv=None) -> int:
         "overlap_mixed": t_over_mixed, "fused_quantile": t_full})
     require_ledger("observability")
     torch.cuda.empty_cache()
+    win = phase_windows(device)
+    require_ledger("windows")
+    serving = phase_serve(device)
+    require_ledger("serve")
+    fab = phase_fabric(device)
+    require_ledger("fabric")
 
     def launched(name):
         return sum(path["launches"][name]
-                   for path in (pos, mixed, dist, wire, ckpt, backends, robust, obs))
+                   for path in (pos, mixed, dist, wire, ckpt, backends, robust, obs, win,
+                                serving, fab))
 
     src = "sketches_tpu_torch/csrc/"
     rows = [

@@ -26,6 +26,10 @@ switches.  So is the observability layer: self-sketching telemetry
 device-clocked profiling (``profiling``) and the accuracy shadow audit
 (``accuracy``), wired into the same seams.
 
+Time windows (``windows``: ``WindowedSketch`` rings of time-slice buckets
+on a coarsening ladder), the multi-tenant serving tier (``serve``) and the
+replicated serve fabric (``fabric``) sit on top, as in the JAX package.
+
 This package imports torch and numpy only; it never imports JAX or the
 ``sketches_tpu`` package, and protobuf only on the wire paths that need
 message objects.
@@ -68,6 +72,10 @@ from sketches_tpu_torch.mapping import (
     mapping_from_name,
 )
 from sketches_tpu_torch.parallel import DistributedDDSketch, SketchMesh
+from sketches_tpu_torch import serve, windows
+from sketches_tpu_torch.windows import WindowConfig, WindowedSketch
+from sketches_tpu_torch import fabric
+from sketches_tpu_torch.fabric import FabricConfig, ServeFabric
 from sketches_tpu_torch.resilience import (
     BlobTooLarge,
     CheckpointCorrupt,
@@ -138,4 +146,11 @@ __all__ = [
     "resilience",
     "telemetry",
     "tracing",
+    "serve",
+    "windows",
+    "WindowConfig",
+    "WindowedSketch",
+    "fabric",
+    "FabricConfig",
+    "ServeFabric",
 ]

@@ -104,6 +104,11 @@ class MomentState:
         """A new state with ``fn`` applied to every leaf."""
         return MomentState(**{f: fn(getattr(self, f)) for f in FIELDS})
 
+    @classmethod
+    def cat(cls, states) -> "MomentState":
+        """The states stacked along the stream axis, leaf by leaf."""
+        return cls(**{f: torch.cat([getattr(s, f) for s in states]) for f in FIELDS})
+
 
 def init(spec: SketchSpec, n_streams: int, device=None) -> MomentState:
     """An empty moment batch of ``spec.n_moments`` power sums on ``device``

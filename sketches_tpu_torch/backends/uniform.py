@@ -138,6 +138,12 @@ class AdaptiveState:
     def collapsed_high(self) -> torch.Tensor:
         return self.base.collapsed_high
 
+    @classmethod
+    def cat(cls, states) -> "AdaptiveState":
+        """The states stacked along the stream axis, leaf by leaf."""
+        return cls(SketchState.cat([s.base for s in states]),
+                   torch.cat([s.level for s in states]))
+
 
 def init(spec: SketchSpec, n_streams: int, device=None) -> AdaptiveState:
     """An empty adaptive batch on ``device`` (the card by default): dense

@@ -23,11 +23,26 @@ dense blobs stay the classic bytes.  Hand-rolled proto3::
       repeated double powers     = 3;  // packed, k raw power sums
       repeated double log_powers = 4;  // packed, k log power sums
     }
+    message WindowedPayload {       // a whole ring, ONE blob
+      uint32 n_streams             = 1;
+      repeated double slices_s     = 2;  // packed; ladder rung widths
+      repeated double lengths      = 3;  // packed; ring lengths per rung
+      repeated double ledger       = 4;  // packed: [total, retired,
+                                         //   rotations, ladder_collapses]
+      repeated double collapse_levels = 5;  // packed; absent = none
+      repeated BucketEntry buckets = 6;
+      uint64 cur_plus1             = 7;  // 0 = no current slice yet
+    }
+    message BucketEntry {
+      uint32 rung     = 1;
+      uint64 id       = 2;          // bucket index = floor(t / slice)
+      repeated double mass = 3;     // packed, one exact ledger entry
+      uint32 live     = 4;          // 1 = the ring's current bucket
+      repeated bytes stream = 5;    // one inner payload blob per stream
+    }
 
-Both packages write the same bytes for the same state and read each
-other's blobs.  The windowed envelope (``windowed_to_bytes`` /
-``windowed_from_bytes``) comes with the windowed sketch (ROADMAP A10) and
-raises ``SpecError`` until then.  Armed telemetry counts each native
+Both packages write the same bytes for the same state (a windowed ring
+included) and read each other's blobs.  Armed telemetry counts each native
 scan (``wire.native.decode_calls``) and its careful-path handoffs
 (``wire.native.careful_fallbacks``), as in the JAX package.
 
@@ -419,13 +434,234 @@ def payload_from_bytes(spec, blobs, *, assume_native_linear: bool = False, devic
     )
 
 
+# ---------------------------------------------------------------------------
+# Windowed envelope (backend enum 3: a whole ring in one blob)
+# ---------------------------------------------------------------------------
+
+
 def windowed_to_bytes(wsk) -> bytes:
-    """The windowed envelope comes with the windowed sketch (ROADMAP A10);
-    raises ``SpecError`` until then."""
-    raise SpecError("the windowed envelope comes with the windowed sketch (ROADMAP A10)")
+    """A whole ``WindowedSketch`` ring (buckets, ladder config and the exact
+    mass ledger) as ONE envelope blob, the JAX package's bytes.
+
+    The blob starts with the ``SketchPayload`` varint tag (``0x08``) and
+    ``backend = WINDOWED``, so a reader under a plain backend spec refuses
+    it by name.  Each bucket carries one inner blob per stream, byte for
+    byte :func:`payload_to_bytes` of that bucket's state.  Raises
+    ``SpecError`` for a non-windowed argument or a negative bucket id (a
+    clock before the epoch: ids are varints).
+    """
+    from sketches_tpu_torch.backends import BACKEND_WINDOWED
+    from sketches_tpu_torch.windows import WindowedSketch
+
+    if not isinstance(wsk, WindowedSketch):
+        raise SpecError(
+            f"windowed_to_bytes needs a WindowedSketch; got"
+            f" {type(wsk).__name__} (use payload_to_bytes for plain"
+            " backend states)"
+        )
+    spec = wsk.spec
+    buckets = [
+        (r, bid, b.state, b.mass, False)
+        for r in range(wsk.config.n_rungs)
+        for bid, b in sorted(wsk._rungs[r].items())
+    ]
+    if wsk._live_id is not None:
+        buckets.append((
+            0, wsk._live_id, wsk._snapshot_state(wsk._live.state), wsk._live_mass, True,
+        ))
+    entries = []
+    for rung, bid, state, mass, live in buckets:
+        if bid < 0:
+            raise SpecError(
+                f"bucket id {bid} is negative (clock before epoch):"
+                " the windowed envelope encodes ids as varints"
+            )
+        entry = (
+            _field(1, 0) + _varint(rung)
+            + _field(2, 0) + _varint(bid)
+            + _ld(3, _packed_doubles([mass]))
+            + _field(4, 0) + _varint(1 if live else 0)
+        )
+        entry += b"".join(_ld(5, blob) for blob in payload_to_bytes(spec, state))
+        entries.append(entry)
+    payload = (
+        _field(1, 0) + _varint(wsk.n_streams)
+        + _ld(2, _packed_doubles(wsk.config.slices_s))
+        + _ld(3, _packed_doubles([float(n) for n in wsk.config.lengths]))
+        + _ld(4, _packed_doubles([
+            wsk._total, wsk._retired, float(wsk._rotations), float(wsk._ladder_collapses),
+        ]))
+    )
+    if wsk.config.collapse_levels is not None:
+        payload += _ld(5, _packed_doubles([float(v) for v in wsk.config.collapse_levels]))
+    payload += b"".join(_ld(6, entry) for entry in entries)
+    payload += _field(7, 0) + _varint(0 if wsk._cur is None else wsk._cur + 1)
+    return _field(1, 0) + _varint(BACKEND_WINDOWED) + _ld(5, payload)
 
 
-def windowed_from_bytes(blob, *args, **kwargs):
-    """The windowed envelope comes with the windowed sketch (ROADMAP A10);
-    raises ``SpecError`` until then."""
-    raise SpecError("the windowed envelope comes with the windowed sketch (ROADMAP A10)")
+def _read_packed_doubles(payload: bytes, what: str) -> np.ndarray:
+    if len(payload) % 8:
+        raise WireDecodeError(f"WindowedPayload {what} packed-double run truncated")
+    return np.frombuffer(payload, np.float64)
+
+
+def _parse_bucket_entry(entry: bytes):
+    """One BucketEntry -> ``(rung, id, mass, live, stream blobs)``."""
+    i = 0
+    rung = 0
+    bid = 0
+    mass = None
+    live = 0
+    blobs: List[bytes] = []
+    n_total = len(entry)
+    while i < n_total:
+        key, i = _read_varint(entry, i)
+        tag, wt = key >> 3, key & 7
+        if tag == 1 and wt == 0:
+            rung, i = _read_varint(entry, i)
+        elif tag == 2 and wt == 0:
+            bid, i = _read_varint(entry, i)
+        elif tag == 3 and wt == 2:
+            n, i = _read_varint(entry, i)
+            if i + n > n_total:
+                raise WireDecodeError("BucketEntry.mass truncated")
+            mass = _read_packed_doubles(entry[i : i + n], "mass")
+            i += n
+        elif tag == 4 and wt == 0:
+            live, i = _read_varint(entry, i)
+        elif tag == 5 and wt == 2:
+            n, i = _read_varint(entry, i)
+            if i + n > n_total:
+                raise WireDecodeError("BucketEntry.stream truncated")
+            blobs.append(entry[i : i + n])
+            i += n
+        else:
+            i = _skip_field(entry, i, wt)
+    if mass is None or mass.shape[0] != 1:
+        raise WireDecodeError("BucketEntry missing its mass ledger entry")
+    return rung, bid, float(mass[0]), bool(live), blobs
+
+
+def windowed_from_bytes(spec, blob: bytes, *, config=None, clock=None, mesh=None,
+                        value_axis=None, stream_axis=None, engine: str = "auto",
+                        device=None):
+    """Decode a :func:`windowed_to_bytes` envelope (of either package) ->
+    a ``WindowedSketch`` on ``device`` (the card by default) with its ring,
+    ladder and exact ledger intact.
+
+    ``spec`` must match the inner payloads' backend as
+    :func:`payload_from_bytes` demands; a caller's ``config`` is checked
+    against the encoded ladder.  Raises ``WireDecodeError`` for a blob that
+    is not a windowed envelope (naming the backend it carries), structural
+    damage, a bucket whose stream count disagrees with ``n_streams``, or a
+    ladder ``WindowConfig`` refuses; ``SKETCHES_TPU_WINDOWED=0`` refuses
+    through the ``WindowedSketch`` constructor (``SpecError``).
+    """
+    from sketches_tpu_torch.backends import BACKEND_WINDOWED
+    from sketches_tpu_torch.windows import WindowConfig, WindowedSketch, _Bucket
+
+    i = 0
+    backend = 0
+    payload = None
+    n_total = len(blob)
+    while i < n_total:
+        key, i = _read_varint(blob, i)
+        tag, wt = key >> 3, key & 7
+        if tag == 1 and wt == 0:
+            backend, i = _read_varint(blob, i)
+        elif tag == 5 and wt == 2:
+            n, i = _read_varint(blob, i)
+            if i + n > n_total:
+                raise WireDecodeError("SketchPayload.windowed truncated")
+            payload = blob[i : i + n]
+            i += n
+        else:
+            i = _skip_field(blob, i, wt)
+    if backend != BACKEND_WINDOWED:
+        raise WireDecodeError(
+            f"blob carries backend {BACKEND_NAMES.get(backend, backend)!r}, expected"
+            " 'windowed' (decode plain payloads with payload_from_bytes)"
+        )
+    if payload is None:
+        raise WireDecodeError("windowed envelope missing the WindowedPayload")
+    i = 0
+    n_streams = None
+    packed = {}
+    entries: List[bytes] = []
+    cur_plus1 = 0
+    names = {2: "slices_s", 3: "lengths", 4: "ledger", 5: "collapse_levels"}
+    n_total = len(payload)
+    while i < n_total:
+        key, i = _read_varint(payload, i)
+        tag, wt = key >> 3, key & 7
+        if tag == 1 and wt == 0:
+            n_streams, i = _read_varint(payload, i)
+        elif tag in names and wt == 2:
+            n, i = _read_varint(payload, i)
+            if i + n > n_total:
+                raise WireDecodeError("WindowedPayload field truncated")
+            packed[names[tag]] = _read_packed_doubles(payload[i : i + n], names[tag])
+            i += n
+        elif tag == 6 and wt == 2:
+            n, i = _read_varint(payload, i)
+            if i + n > n_total:
+                raise WireDecodeError("WindowedPayload bucket truncated")
+            entries.append(payload[i : i + n])
+            i += n
+        elif tag == 7 and wt == 0:
+            cur_plus1, i = _read_varint(payload, i)
+        else:
+            i = _skip_field(payload, i, wt)
+    ledger = packed.get("ledger")
+    if n_streams is None or "slices_s" not in packed or "lengths" not in packed \
+            or ledger is None or ledger.shape[0] < 2:
+        raise WireDecodeError(
+            "WindowedPayload missing required fields (n_streams/slices_s/lengths/ledger)"
+        )
+    levels = packed.get("collapse_levels")
+    try:
+        decoded_config = WindowConfig(
+            slices_s=tuple(float(s) for s in packed["slices_s"]),
+            lengths=tuple(int(n) for n in packed["lengths"]),
+            collapse_levels=None if levels is None else tuple(int(v) for v in levels),
+        )
+    except SpecError as e:
+        raise WireDecodeError(f"windowed envelope carries an invalid ladder: {e}") from e
+    if config is not None and config != decoded_config:
+        raise WireDecodeError(
+            "windowed envelope ladder disagrees with the caller's"
+            f" config: encoded {decoded_config}, wanted {config}"
+        )
+    wsk = WindowedSketch(
+        int(n_streams), spec=spec, config=decoded_config, clock=clock, mesh=mesh,
+        value_axis=value_axis, stream_axis=stream_axis, engine=engine, device=device,
+    )
+    for entry in entries:
+        rung, bid, mass, live, stream_blobs = _parse_bucket_entry(entry)
+        if rung >= decoded_config.n_rungs:
+            raise WireDecodeError(
+                f"bucket rung {rung} outside the {decoded_config.n_rungs}-rung ladder"
+            )
+        if len(stream_blobs) != int(n_streams):
+            raise WireDecodeError(
+                f"bucket (rung {rung}, id {bid}) carries {len(stream_blobs)} stream"
+                f" payloads, expected {int(n_streams)}"
+            )
+        state = payload_from_bytes(spec, stream_blobs, device=wsk.device)
+        if live:
+            wsk._set_live_state(state)
+            wsk._live_id = bid
+            wsk._live_mass = mass
+        else:
+            wsk._rungs[rung][bid] = _Bucket(rung=rung, id=bid, state=state, mass=mass)
+    wsk._total = float(ledger[0])
+    wsk._retired = float(ledger[1])
+    if ledger.shape[0] >= 4:
+        wsk._rotations = int(ledger[2])
+        wsk._ladder_collapses = int(ledger[3])
+    wsk._cur = None if cur_plus1 == 0 else int(cur_plus1 - 1)
+    # The rungs were assigned behind the constructor's back and the wire
+    # never carries the two-stacks aggregates (derived state): drop the
+    # fresh stacks so the first plan rebuilds them.
+    wsk._agg_invalidate()
+    return wsk

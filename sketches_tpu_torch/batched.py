@@ -240,6 +240,12 @@ class SketchState:
         """A new state with ``fn`` applied to every leaf."""
         return SketchState(**{f: fn(getattr(self, f)) for f in LEAVES})
 
+    @classmethod
+    def cat(cls, states) -> "SketchState":
+        """The states stacked along the stream axis, leaf by leaf (one
+        device; the tile sums and occupied bounds come along)."""
+        return cls(**{f: torch.cat([getattr(s, f) for s in states]) for f in LEAVES})
+
 
 def init(spec: SketchSpec, n_streams: int, device=None) -> SketchState:
     """Allocate an empty batch of ``n_streams`` sketches on ``device``: the
@@ -998,8 +1004,10 @@ class BatchedDDSketch:
         ``windowed`` on the kernel path (``kernels.choose_query_engine``;
         overlap while ``kernels.overlap_enabled()`` and neither the caller
         nor the demotion ladder has disabled it), else ``wxla`` for
-        128-aligned windows, else ``xla``.  Each plan costs one small host
-        fetch after a state mutation and is cached."""
+        128-aligned windows, else ``xla``: ``kernels.floor_quantile`` (K2
+        on the card), or ``batched.quantile`` on the ``plain`` engine.
+        Each plan costs one small host fetch after a state mutation and is
+        cached."""
         from sketches_tpu_torch import kernels
 
         if self._query_disabled:
@@ -1046,7 +1054,9 @@ class BatchedDDSketch:
             return "wxla", functools.partial(
                 _wxla_call, spec, lo_w * w_t, n_w * w_t, with_neg
             )
-        return "xla", functools.partial(quantile, spec)
+        if self._engine_request == "plain":
+            return "xla", functools.partial(quantile, spec)
+        return "xla", functools.partial(kernels.floor_quantile, spec)
 
     def _run_query(self, qs_tuple: tuple, disabled: frozenset = frozenset()):
         """Dispatch a query down the tier ladder -> ``(tier, values)``.

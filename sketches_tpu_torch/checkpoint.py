@@ -34,8 +34,9 @@ Durability contract:
   (a torn write reaching ``path``) or raises before the rename (the
   previous checkpoint survives).
 
-Not ported yet: windowed ring checkpoints (``save_windowed`` /
-``restore_windowed``, ROADMAP A10).
+Windowed rings (``save_windowed`` / ``restore_windowed``) keep ring,
+ladder and exact mass ledger in one atomically renamed npz under the same
+contract, in the JAX package's ``windowed-v1`` format.
 """
 
 from __future__ import annotations
@@ -393,13 +394,222 @@ def restore_distributed(
     )
 
 
+# ---------------------------------------------------------------------------
+# Windowed ring checkpoints (ring + ladder + ledger, atomically)
+# ---------------------------------------------------------------------------
+
+
+def _windowed_buckets(wsk):
+    """``(rung, id, state, mass, live)`` for every bucket of a ring, frozen
+    buckets first (rung, then id order), the live bucket last: the member
+    order ``b{k}`` of a windowed checkpoint."""
+    out = [
+        (rung, bid, wsk._rungs[rung][bid].state, wsk._rungs[rung][bid].mass, False)
+        for rung in range(wsk.config.n_rungs)
+        for bid in sorted(wsk._rungs[rung])
+    ]
+    if wsk._live_id is not None:
+        out.append((0, wsk._live_id, wsk._snapshot_state(wsk._live.state), wsk._live_mass, True))
+    return out
+
+
+def _windowed_doc(wsk) -> Tuple[str, dict]:
+    """Flatten a WindowedSketch to (meta json, array dict): bucket ``k``'s
+    state arrays under ``b{k}.<field>``; the meta carries the spec, the
+    ladder, the per-bucket ledger entries (the live bucket flagged) and the
+    retired and total mass."""
+    spec = wsk.spec
+    buckets_meta = []
+    arrays: dict = {}
+    for k, (rung, bid, state, mass, live) in enumerate(_windowed_buckets(wsk)):
+        for name, arr in _state_arrays(spec, state).items():
+            arrays[f"b{k}.{name}"] = arr
+        buckets_meta.append({"rung": rung, "id": bid, "mass": mass, "live": live})
+    meta = {
+        "format": "windowed-v1",
+        "spec": json.loads(_spec_json(spec)),
+        "config": {
+            "slices_s": list(wsk.config.slices_s),
+            "lengths": list(wsk.config.lengths),
+            "collapse_levels": (
+                None if wsk.config.collapse_levels is None
+                else list(wsk.config.collapse_levels)
+            ),
+        },
+        "n_streams": wsk.n_streams,
+        "buckets": buckets_meta,
+        "total": wsk._total,
+        "retired": wsk._retired,
+        "rotations": wsk._rotations,
+        "ladder_collapses": wsk._ladder_collapses,
+        "cur": wsk._cur,
+    }
+    return json.dumps(meta, sort_keys=True), arrays
+
+
 def save_windowed(path: str, wsk) -> None:
-    """Windowed ring checkpoints come with the windowed sketch (ROADMAP
-    A10); the port raises ``SpecError`` until then."""
-    raise SpecError("windowed checkpoints come with the windowed sketch (ROADMAP A10)")
+    """Checkpoint a ``WindowedSketch``: ring, ladder and exact mass ledger in
+    ONE atomically renamed npz, so a crash mid-write never tears the ring
+    from its ledger.
+
+    Same durability contract as :func:`save_state`: serialize to memory,
+    temp file + fsync + ``os.replace``, a sha256 checksum over the meta and
+    every bucket array.  The armed integrity layer verifies every bucket
+    state before anything reaches disk and embeds per-bucket fingerprints
+    (``__fp_b{k}__``) for the restore side; the armed ``checkpoint.write``
+    site tears or aborts as for batched states.  Raises ``SpecError`` for a
+    non-windowed argument.
+    """
+    from sketches_tpu_torch.windows import WindowedSketch
+
+    if not isinstance(wsk, WindowedSketch):
+        raise SpecError(
+            f"save_windowed needs a WindowedSketch; got"
+            f" {type(wsk).__name__} (use save() for plain facades)"
+        )
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
+    meta_json, arrays = _windowed_doc(wsk)
+    extra = {}
+    if integrity._ACTIVE:
+        for k, (_rung, _bid, state, _mass, _live) in enumerate(_windowed_buckets(wsk)):
+            integrity.verify_state(wsk.spec, state, seam="checkpoint.save_windowed")
+            extra[f"__fp_b{k}__"] = integrity.fingerprint(wsk.spec, state)
+    data = _npz_bytes(
+        {
+            "__window__": np.frombuffer(meta_json.encode(), np.uint8),
+            "__checksum__": np.frombuffer(_digest(meta_json, arrays).encode(), np.uint8),
+            **extra,
+            **arrays,
+        }
+    )
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        if faults._ACTIVE:
+            data = faults.inject(faults.CHECKPOINT_WRITE, payload=data)
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        if _t0 is not None:
+            telemetry.finish_span("checkpoint.save_s", _t0)
+            telemetry.gauge_set("checkpoint.bytes", float(len(data)))
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
-def restore_windowed(path: str, *args, **kwargs):
-    """Windowed ring checkpoints come with the windowed sketch (ROADMAP
-    A10); the port raises ``SpecError`` until then."""
-    raise SpecError("windowed checkpoints come with the windowed sketch (ROADMAP A10)")
+def restore_windowed(
+    path: str,
+    *,
+    clock=None,
+    mesh=None,
+    value_axis=None,
+    stream_axis=None,
+    engine: str = "auto",
+    device=None,
+):
+    """Resume a :func:`save_windowed` checkpoint (of either package) -> a
+    ``WindowedSketch`` on ``device`` (the card by default) with its ring,
+    ladder positions and exact mass ledger intact.
+
+    ``clock`` must agree with the timeline the ring was saved under (a
+    virtual clock restores deterministically).  ``mesh``/``value_axis``
+    re-home the live bucket on a mesh-sharded fleet (frozen buckets are
+    topology-free).  A torn or corrupted archive raises
+    :class:`CheckpointCorrupt`; an armed integrity layer re-verifies every
+    bucket against its embedded fingerprint; a missing file stays
+    ``FileNotFoundError``; ``SKETCHES_TPU_WINDOWED=0`` refuses through the
+    ``WindowedSketch`` constructor.
+    """
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
+    try:
+        wsk = _restore_windowed_inner(
+            path, clock=clock, mesh=mesh, value_axis=value_axis,
+            stream_axis=stream_axis, engine=engine, device=device,
+        )
+    except (FileNotFoundError, CheckpointCorrupt):
+        raise
+    except Exception as e:
+        raise CheckpointCorrupt(
+            f"windowed checkpoint {path!r} failed to restore ({type(e).__name__}: {e})"
+        ) from e
+    if _t0 is not None:
+        telemetry.finish_span("checkpoint.restore_s", _t0)
+    return wsk
+
+
+def _restore_windowed_inner(path, *, clock, mesh, value_axis, stream_axis, engine, device):
+    from sketches_tpu_torch.windows import WindowConfig, WindowedSketch, _Bucket
+
+    with np.load(path) as data:
+        if "__window__" not in data.files:
+            raise CheckpointCorrupt(
+                f"checkpoint {path!r} is not a windowed checkpoint"
+                " (no __window__ member); use restore() instead"
+            )
+        meta_json = bytes(data["__window__"]).decode()
+        meta = json.loads(meta_json)
+        spec = _spec_from_meta(meta["spec"])
+        cfg = meta["config"]
+        config = WindowConfig(
+            slices_s=tuple(cfg["slices_s"]),
+            lengths=tuple(cfg["lengths"]),
+            collapse_levels=(
+                None if cfg["collapse_levels"] is None else tuple(cfg["collapse_levels"])
+            ),
+        )
+        fields = _fields_of(spec)
+        arrays_np = {}
+        for k in range(len(meta["buckets"])):
+            for name in fields:
+                key = f"b{k}.{name}"
+                if key not in data.files:
+                    raise CheckpointCorrupt(
+                        f"windowed checkpoint {path!r} is missing bucket array {key!r}"
+                    )
+                arrays_np[key] = np.asarray(data[key])
+        if "__checksum__" in data.files:
+            stored = bytes(data["__checksum__"]).decode()
+            got = _digest(meta_json, arrays_np)
+            if got != stored:
+                raise CheckpointCorrupt(
+                    f"windowed checkpoint {path!r} checksum mismatch"
+                    f" (stored {stored[:12]}..., recomputed {got[:12]}...):"
+                    " content corrupted after write"
+                )
+        stored_fps = {
+            k: np.asarray(data[f"__fp_b{k}__"])
+            for k in range(len(meta["buckets"]))
+            if f"__fp_b{k}__" in data.files
+        }
+    wsk = WindowedSketch(
+        int(meta["n_streams"]), spec=spec, config=config, clock=clock, mesh=mesh,
+        value_axis=value_axis, stream_axis=stream_axis, engine=engine, device=device,
+    )
+    for k, bm in enumerate(meta["buckets"]):
+        state = _arrays_to_backend_state(
+            spec, {name: arrays_np[f"b{k}.{name}"] for name in fields}, wsk.device
+        )
+        if integrity._ACTIVE and k in stored_fps:
+            integrity.verify_restore(
+                spec, state, stored_fps[k], seam="checkpoint.restore_windowed"
+            )
+        if bm["live"]:
+            wsk._set_live_state(state)
+            wsk._live_id = int(bm["id"])
+            wsk._live_mass = float(bm["mass"])
+        else:
+            wsk._rungs[int(bm["rung"])][int(bm["id"])] = _Bucket(
+                rung=int(bm["rung"]), id=int(bm["id"]), state=state, mass=float(bm["mass"]),
+            )
+    wsk._total = float(meta["total"])
+    wsk._retired = float(meta["retired"])
+    wsk._rotations = int(meta.get("rotations", 0))
+    wsk._ladder_collapses = int(meta.get("ladder_collapses", 0))
+    wsk._cur = None if meta["cur"] is None else int(meta["cur"])
+    # The two-stacks aggregates are derived state, never serialized, and
+    # the rungs above were assigned behind the constructor's back: drop the
+    # fresh stacks so the first plan rebuilds them (counted as a rebuild).
+    wsk._agg_invalidate()
+    return wsk

@@ -80,8 +80,8 @@ site                    simulates
 
 Site names are the JAX package's, ``pallas.*`` included: they name the
 seam, not the kernel technology.  The serve, window and fabric sites are
-declared and their selectors ported, and they are consumed when those
-tiers are ported (ROADMAP A10).  ``pallas.ingest_variant`` is declared but
+consumed by ``serve``, ``windows`` and ``fabric``, at the JAX package's
+seams.  ``pallas.ingest_variant`` is declared but
 has no seam in the port: the four TPU ingest construction rungs it
 degrades between are not ported (the port keeps the contract, not the TPU
 construction), so nothing here injects it.

@@ -54,8 +54,9 @@ then bit-equal in both packages -- what content-addressed caches and
 replica gates rely on.  (The coefficients come from a table over the
 keys' span instead of one mix a bin: the same values, faster.)  The
 host cost grows with the state: an armed check of 1M x 512 streams
-fetches 4 GB.  The windowed checks (``check_window`` /
-``verify_window``) come with the windowed sketch (ROADMAP A10).
+fetches 4 GB.  The windowed checks (:func:`check_window` /
+:func:`verify_window`) hold a ring's exact mass ledger and check every
+bucket state.
 
 Detection floor: checks on float (f32) device masses compare within a
 rounding tolerance (``_RTOL``/``_ATOL``), so corruption smaller than
@@ -105,6 +106,8 @@ __all__ = [
     "postmerge",
     "repair",
     "verify_moment_merge",
+    "check_window",
+    "verify_window",
 ]
 
 #: Declared in ``analysis/registry.py`` (the kill-switch inventory).
@@ -1161,3 +1164,77 @@ def repair(spec, state) -> Tuple[Any, IntegrityReport]:
 _env = registry.get(registry.INTEGRITY)
 if _env and _env != "0":  # pragma: no cover - exercised via subprocess in CI
     arm("quarantine" if _env in ("quarantine", "report") else "raise")
+
+
+# ---------------------------------------------------------------------------
+# Windowed rings: ledger + per-bucket invariants
+# ---------------------------------------------------------------------------
+
+
+def check_window(wsk, seam: str = "window") -> IntegrityReport:
+    """Invariant-check a ``WindowedSketch``: the exact mass ledger plus
+    every bucket's state -> an :class:`IntegrityReport`.
+
+    The windowed invariants, compared with ``==`` (the ledger is exact by
+    contract):
+
+    * ``window_ledger`` -- ``total_mass == sum(live bucket masses) +
+      retired_mass``;
+    * ``window_bucket_mass`` -- each bucket's ledger entry equals the
+      device-side mass of its state (``count`` summed over streams);
+    * ``window_agg`` -- every CACHED two-stacks aggregate equals the same
+      merge tree recomputed from the raw bucket states, leaf for leaf (the
+      ``window.agg_stale`` adversary is what this catches).  Skipped when
+      the maintained layer is off or its stacks are dropped.
+
+    Every bucket state also runs :func:`check_state` (violations fold into
+    the same report, stream indices kept).  A clean ring returns a falsy
+    report; :func:`verify_window` applies the armed policy.
+    """
+    buckets = wsk.buckets()
+    report = IntegrityReport(seam=seam, n_streams=wsk.n_streams)
+    live_sum = sum(m for _, _, m in buckets)
+    if wsk.total_mass != live_sum + wsk.retired_mass:
+        report.add(
+            -1, "window_ledger",
+            f"total {wsk.total_mass:g} != live {live_sum:g} +"
+            f" retired {wsk.retired_mass:g}",
+        )
+    for detail in wsk._agg_audit():
+        report.add(-1, "window_agg", detail)
+    device = wsk.device_masses()
+    for rung, bid, mass in buckets:
+        got = device.get((rung, bid))
+        if got is None or got != mass:
+            report.add(
+                -1, "window_bucket_mass",
+                f"bucket (rung {rung}, id {bid}) ledger {mass:g} != device {got}",
+            )
+
+    def fold_in(sub: IntegrityReport) -> None:
+        for v in sub.violations:
+            report.add(v.stream, v.invariant, v.detail)
+        report.n_violations += sub.n_violations - len(sub.violations)
+
+    for rung in range(wsk.config.n_rungs):
+        for bid, b in sorted(wsk._rungs[rung].items()):
+            fold_in(check_state(wsk.spec, b.state, seam=f"{seam}.bucket[{rung},{bid}]"))
+    if wsk._live_id is not None:
+        fold_in(check_state(
+            wsk.spec, wsk._snapshot_state(wsk._live.state), seam=f"{seam}.live"
+        ))
+    return report
+
+
+def verify_window(
+    wsk, *, seam: str = "window", errors: Optional[str] = None
+) -> IntegrityReport:
+    """Check a windowed ring (:func:`check_window`) and apply the armed
+    policy: raises :class:`IntegrityError` on violations in ``"raise"``
+    mode, records and returns the report in ``"quarantine"`` mode; a clean
+    ring returns a falsy report."""
+    _t0 = telemetry.clock() if telemetry._ACTIVE else None
+    report = check_window(wsk, seam=seam)
+    if _t0 is not None:
+        telemetry.finish_span("integrity.check_s", _t0, seam=seam)
+    return _record(report, errors)

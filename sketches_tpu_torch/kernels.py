@@ -58,6 +58,7 @@ __all__ = [
     "ingest_histogram_plain",
     "fused_quantile",
     "fused_quantile_plain",
+    "floor_quantile",
     "fused_quantile_windowed",
     "fused_quantile_windowed_plain",
     "fused_quantile_tiles",
@@ -454,6 +455,24 @@ def fused_quantile(spec: SketchSpec, state: SketchState, qs) -> torch.Tensor:
     )
     fused_quantile.launches += 1
     return out
+
+
+def floor_quantile(spec: SketchSpec, state: SketchState, qs) -> torch.Tensor:
+    """The ``xla`` floor of a dense state -> [N, Q], the one router for it:
+    :func:`fused_quantile` (K2) for float bins on a CUDA device, at any
+    stream count and width; ``batched.quantile`` on the CPU and for integer
+    bins, which have no kernel in either package (the JAX package's
+    ``fused_quantile`` refuses them too; their integer rank compare never
+    rounds).  K2 and ``batched.quantile`` compute the same function bit for
+    bit, so the choice moves no answer.  Both facades' ``xla`` tier, the
+    serving tier's floor, hedge and stacked flush, and the window
+    fold-decode answer here, where the JAX package dispatches its jitted
+    ``batched.quantile``."""
+    if state.device.type == "cuda" and not spec.bins_integer:
+        return fused_quantile(spec, state, qs)
+    from sketches_tpu_torch.batched import quantile
+
+    return quantile(spec, state, qs)
 
 
 def _first_last_occupied(bins: torch.Tensor):

@@ -465,8 +465,9 @@ class DistributedDDSketch:
 
     Queries walk the five tiers of the JAX facade (``overlap``, ``tiles``,
     ``windowed``, ``wxla``, ``xla``), planned over every stream shard's
-    fold at the shard-local block width; on the kernel engine ``xla`` is
-    ``kernels.fused_quantile``, else ``batched.quantile``.  Answers come
+    fold at the shard-local block width; ``xla`` is
+    ``kernels.floor_quantile`` (K2 on the card), or ``batched.quantile``
+    on the ``plain`` engine.  Answers come
     back on the mesh's first device.  A failing tier demotes the facade to
     the next one for good (a ``distributed.query`` downgrade); the floor
     re-raises, and so does a real kernel error on the card.
@@ -761,9 +762,9 @@ class DistributedDDSketch:
         if self._wxla_ok and "wxla" not in disabled:
             lo_w, n_w, w_t, with_neg = self._plans(qs_tuple, 0)[0]
             return "wxla", functools.partial(_wxla_call, spec, lo_w * w_t, n_w * w_t, with_neg)
-        if self._kernel_query:
-            return "xla", functools.partial(kernels.fused_quantile, spec)
-        return "xla", functools.partial(quantile, spec)
+        if self._engine_arg == "plain":
+            return "xla", functools.partial(quantile, spec)
+        return "xla", functools.partial(kernels.floor_quantile, spec)
 
     def _qs_on(self, qs_tuple: tuple, device) -> torch.Tensor:
         key = (qs_tuple, str(device))

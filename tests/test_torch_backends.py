@@ -625,3 +625,115 @@ def test_convert_carries_backend_states_and_refuses_bad_leaves():
                 dict(mleaves, powers=mleaves["powers"][:, :4])):
         with pytest.raises(SpecError):
             convert.moment_from_numpy(tm, bad, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Backend tenants behind the serving tier (``tests/test_backends.py``'s
+# ``TestServe``): mixed-backend fleets, poison-free cache hits, write
+# invalidation, and the stacked dispatch of same-spec adaptive and moment
+# tenants, each result held to the JAX server's on the same inputs.
+# ---------------------------------------------------------------------------
+
+
+def _serve_pair(tenants):
+    """A JAX and a port server with the same ``{name: (jax spec, port
+    spec)}`` tenants of 4 streams (the port's on the CPU)."""
+    from sketches_tpu import serve as js
+    from sketches_tpu_torch import serve as ts
+
+    clocks = (lambda: 0.0, lambda: 0.0)
+    srv = (js.SketchServer(clock=clocks[0]), ts.SketchServer(clock=clocks[1]))
+    for name, (sj, st) in tenants.items():
+        srv[0].add_tenant(name, 4, spec=sj)
+        srv[1].add_tenant(name, 4, spec=st, device="cpu")
+    return srv
+
+
+def _serve_specs():
+    a, m = _aspecs(n_bins=128, max_collapses=3), _mspecs(k=8)
+    return {"adaptive": a, "moment": m,
+            "dense": (jb.SketchSpec(n_bins=256), tb.SketchSpec(n_bins=256))}
+
+
+class TestServe:
+    def test_mixed_backend_fleet_answers_concurrently(self):
+        srv = _serve_pair(_serve_specs())
+        v = _mid_bucket(np.random.RandomState(5).lognormal(0, 1.5, (4, 2048)))
+        got = []
+        for s in srv:
+            for name in ("adaptive", "moment", "dense"):
+                s.ingest(name, v)
+            tickets = [s.submit(n, [0.5, 0.9]) for n in ("adaptive", "moment", "dense")]
+            assert len(s.flush()) == 3
+            got.append([(t.tenant, t.result.tier, np.asarray(t.result.values)) for t in tickets])
+        ex = np.stack([np.quantile(v[i], [0.5, 0.9]) for i in range(4)])
+        for (jn, jtier, jv), (tn, ttier, tv) in zip(*got):
+            assert (jn, jtier) == (tn, ttier)
+            rel = np.abs(tv.astype(np.float64) - ex) / np.abs(ex)
+            assert rel.max() < 0.25, (tn, rel.max())
+            if tn == "dense":
+                np.testing.assert_allclose(tv, jv, rtol=1e-6)
+            elif tn == "adaptive":
+                np.testing.assert_allclose(tv, jv, rtol=2e-6)
+
+    def test_cache_hits_stay_poison_free_across_backends(self):
+        srv = _serve_pair(_serve_specs())[1]
+        v = np.random.RandomState(6).lognormal(0, 1.0, (4, 512)).astype(np.float32)
+        names = ("adaptive", "moment", "dense")
+        for name in names:
+            srv.ingest(name, v)
+        first = [srv.submit(n, [0.5]) for n in names]
+        srv.flush()
+        second = [srv.submit(n, [0.5]) for n in names]
+        srv.flush()
+        assert all(t.result.cached for t in second)
+        assert srv.stats()["cache_poisoned"] == 0
+        for a, b in zip(first, second):
+            np.testing.assert_array_equal(a.result.values, b.result.values)
+
+    def test_write_invalidates_backend_tenants(self):
+        srv = _serve_pair(_serve_specs())[1]
+        v = np.ones((4, 64), np.float32)
+        srv.ingest("moment", v)
+        t1 = srv.submit("moment", [0.5])
+        srv.flush()
+        srv.ingest("moment", 3.0 * v)
+        t2 = srv.submit("moment", [0.5])
+        srv.flush()
+        assert not t2.result.cached
+        assert not np.array_equal(t1.result.values, t2.result.values)
+
+    def test_same_spec_adaptive_tenants_fuse(self):
+        spec = _aspecs(n_bins=128, max_collapses=3)
+        srv = _serve_pair({"a1": spec, "a2": spec})
+        r = np.random.RandomState(11)
+        v1 = _mid_bucket(r.lognormal(0, 0.5, (4, 512)))
+        v2 = _mid_bucket(r.lognormal(0, 3.0, (4, 2048)))
+        out = []
+        for s in srv:
+            s.ingest("a1", v1)
+            s.ingest("a2", v2)  # wide: this tenant collapses
+            tks = [s.submit("a1", [0.5]), s.submit("a2", [0.5])]
+            s.flush()
+            assert s.stats()["fused_dispatches"] == 1
+            out.append([np.asarray(t.result.values) for t in tks])
+        for (jv, tv), v, name in zip(zip(*out), (v1, v2), ("a1", "a2")):
+            np.testing.assert_allclose(tv, jv, rtol=2e-6)
+            want = np.quantile(v, 0.5, axis=1)
+            ea = srv[1].tenant(name).effective_alpha().numpy().astype(np.float64)
+            assert (np.abs(tv[:, 0] - want) / np.abs(want) <= ea + 0.02).all()
+        assert int(srv[1].tenant("a2").level.min()) == int(np.asarray(srv[0].tenant("a2").level).min())
+
+    def test_same_spec_moment_tenants_fuse(self):
+        spec = _mspecs(k=8)
+        srv = _serve_pair({"m1": spec, "m2": spec})[1]
+        r = np.random.RandomState(7)
+        srv.ingest("m1", r.lognormal(0, 1.0, (4, 256)).astype(np.float32))
+        srv.ingest("m2", r.lognormal(1.0, 1.0, (4, 256)).astype(np.float32))
+        t1, t2 = srv.submit("m1", [0.5]), srv.submit("m2", [0.5])
+        srv.flush()
+        assert srv.stats()["fused_dispatches"] == 1
+        assert np.isfinite(t1.result.values).all() and np.isfinite(t2.result.values).all()
+        for t in (t1, t2):
+            own = srv.tenant(t.tenant).get_quantile_values([0.5])
+            np.testing.assert_array_equal(t.result.values, own)

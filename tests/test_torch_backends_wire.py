@@ -213,10 +213,24 @@ def test_encode_refusals_and_the_windowed_envelope():
         TW.payload_to_bytes(ta, fa.state.base)
     with pytest.raises(SpecError, match="SketchState"):
         TW.payload_to_bytes(tb.SketchSpec(n_bins=128), fa.state)
-    with pytest.raises(SpecError, match="A10"):
+    # The windowed envelope: a whole ring round-trips, and a non-ring or an
+    # empty blob is refused by name.
+    from sketches_tpu_torch.windows import VirtualClock, WindowConfig, WindowedSketch
+
+    clk = VirtualClock(0.0)
+    ring = WindowedSketch(4, spec=ta, config=WindowConfig((5.0, 20.0), (2, 2)), clock=clk,
+                          device="cpu")
+    for step in range(6):
+        clk.advance(3.0)
+        ring.add(np.random.RandomState(step).lognormal(0, 1, (4, 8)).astype(np.float32))
+    blob = TW.windowed_to_bytes(ring)
+    back = TW.windowed_from_bytes(ta, blob, clock=VirtualClock(clk.t), device="cpu")
+    assert back.ledger() == ring.ledger() and back.buckets() == ring.buckets()
+    assert TW.windowed_to_bytes(back) == blob
+    with pytest.raises(SpecError, match="WindowedSketch"):
         TW.windowed_to_bytes(None)
-    with pytest.raises(SpecError, match="A10"):
-        TW.windowed_from_bytes(b"")
+    with pytest.raises(WireDecodeError, match="windowed"):
+        TW.windowed_from_bytes(ta, b"")
     empty = TW.payload_from_bytes(tm, [], device="cpu")
     assert empty.n_streams == 0 and empty.n_moments == tm.n_moments
 

@@ -344,3 +344,34 @@ def test_cumsum_f32_accumulates_in_f32():
         assert got[0, i].item() == acc
     ints = torch.tensor([[3, 0, 2**24, 1]], dtype=torch.int32)
     assert tb.cumsum_f32(ints).tolist() == [[3, 3, 2**24 + 3, 2**24 + 4]]
+
+
+@pytest.mark.parametrize("engine", ["auto", "plain"])
+@pytest.mark.parametrize("n", [128, 100])
+def test_xla_tier_routes_through_the_floor_router(engine, n, monkeypatch):
+    """Both facades' ``xla`` tier answers through ``kernels.floor_quantile``
+    (K2 on the card) at any stream count; only the ``plain`` engine calls
+    ``batched.quantile`` itself.  The answers equal ``batched.quantile``."""
+    from sketches_tpu_torch import kernels, parallel
+
+    routed = []
+    real = kernels.floor_quantile
+
+    def spy(spec, state, qs):
+        routed.append(state.n_streams)
+        return real(spec, state, qs)
+
+    monkeypatch.setattr(kernels, "floor_quantile", spy)
+    qs = [0.5, 0.99]
+    v = np.random.RandomState(5).lognormal(0.0, 1.0, (n, 128)).astype(np.float32)
+    b = tb.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=256, engine=engine, device="cpu")
+    d = parallel.DistributedDDSketch(n, mesh=parallel.SketchMesh(devices=["cpu", "cpu"]),
+                                     relative_accuracy=0.01, n_bins=256, engine=engine)
+    b.add(v)
+    d.add(np.concatenate([v, v], axis=1))
+    floor = ("overlap", "tiles", "windowed", "wxla")
+    for facade, state in ((b, b.state), (d, d.merged_state())):
+        tier, got = facade.get_quantile_values_resolved(qs, disabled_tiers=floor)
+        assert tier == "xla"
+        np.testing.assert_array_equal(got.numpy(), tb.quantile(facade.spec, state, qs).numpy())
+    assert routed == ([] if engine == "plain" else [n, n])

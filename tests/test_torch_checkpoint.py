@@ -282,10 +282,25 @@ def test_non_dense_and_windowed_refuse(tmp_path):
     spec = tb.SketchSpec(0.01, n_bins=128, backend="moment")
     with pytest.raises(SpecError, match="MomentState"):
         tc.save_state(str(tmp_path / "x.npz"), spec, tb.init(tb.SketchSpec(0.01, n_bins=128), 2, "cpu"))
-    with pytest.raises(SpecError, match="A10"):
-        tc.save_windowed(str(tmp_path / "w.npz"), None)
-    with pytest.raises(SpecError, match="A10"):
-        tc.restore_windowed(str(tmp_path / "w.npz"))
+    # Windowed checkpoints: a ring round-trips; a plain checkpoint or a
+    # non-ring is refused by name.
+    from sketches_tpu_torch.windows import VirtualClock, WindowConfig, WindowedSketch
+
+    clk = VirtualClock(0.0)
+    ring = WindowedSketch(4, spec=tb.SketchSpec(0.01, n_bins=128),
+                          config=WindowConfig((5.0, 20.0), (2, 2)), clock=clk, device="cpu")
+    for step in range(6):
+        clk.advance(3.0)
+        ring.add(np.random.RandomState(step).lognormal(0, 1, (4, 8)).astype(np.float32))
+    wpath = str(tmp_path / "w.npz")
+    tc.save_windowed(wpath, ring)
+    back = tc.restore_windowed(wpath, clock=VirtualClock(clk.t), device="cpu")
+    assert back.ledger() == ring.ledger() and back.buckets() == ring.buckets()
+    assert torch.equal(back.quantile([0.5], window=None), ring.quantile([0.5], window=None))
+    with pytest.raises(SpecError, match="WindowedSketch"):
+        tc.save_windowed(str(tmp_path / "x.npz"), None)
+    with pytest.raises(CheckpointCorrupt, match="not a windowed"):
+        tc.restore_windowed(path, device="cpu")
 
 
 def test_atomic_write_keeps_the_previous_checkpoint(tmp_path, monkeypatch):

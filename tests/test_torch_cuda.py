@@ -820,6 +820,175 @@ def test_kernel_errors_inside_armed_observability_raise(dev, monkeypatch):
     assert sk._query_disabled == set()
 
 
+def _card_server(dev, names=("a", "b"), n=1024, seed=41, sizes=None, clock=None, **cfg):
+    """A server with dense tenants of one spec on the card (512 bins, mixed
+    traffic), on a fixed serving clock unless ``clock`` is given;
+    ``sizes`` gives each tenant its own stream count."""
+    from sketches_tpu_torch import serve
+
+    srv = serve.SketchServer(serve.ServeConfig(**cfg), clock=clock or (lambda: 0.0))
+    r = np.random.RandomState(seed)
+    for name, n in zip(names, sizes or [n] * len(names)):
+        srv.add_tenant(name, n, relative_accuracy=0.01, n_bins=512, device=dev)
+        srv.ingest(name, (r.lognormal(0, 2, (n, 256))
+                          * np.where(r.rand(n, 256) < 0.4, -1, 1)).astype(np.float32))
+    return srv
+
+
+def test_stacked_flush_launches_k2_once_per_group(dev):
+    """Tenants sharing a spec and a quantile set answer in one K2 launch,
+    equal to each tenant's plain ``batched.quantile`` on the card bit for
+    bit, and to the CPU copy's to rtol 1e-6 (the decode's exp)."""
+    qs = [0.01, 0.5, 0.99]
+    srv = _card_server(dev, names=("a", "b", "c"))
+    tickets = [srv.submit(name, qs) for name in ("a", "b", "c")]
+    kernels.reset_launch_counts()
+    srv.flush()
+    counts = kernels.launch_counts()
+    assert counts["fused_quantile"] == 1 and srv.stats()["fused_dispatches"] == 1
+    assert sum(counts.values()) == 1
+    for tk in tickets:
+        spec, st = srv.tenant(tk.tenant).spec, srv.tenant(tk.tenant).state
+        assert tk.result.tier == "xla" and not tk.result.hedged
+        want = batched.quantile(spec, st, qs).cpu()
+        assert torch.equal(torch.from_numpy(tk.result.values), want)
+        cpu = batched.quantile(spec, st.map(lambda t: t.cpu()), qs)
+        assert _rel_ok(torch.from_numpy(tk.result.values), cpu, 1e-6)
+
+
+def _plain_calls_on_card(monkeypatch) -> list:
+    """Spy on ``batched.quantile``: the returned list gains one entry per
+    call on a card state."""
+    calls = []
+    real = batched.quantile
+
+    def spy(spec, state, qs):
+        if state.device.type == "cuda":
+            calls.append(state.n_streams)
+        return real(spec, state, qs)
+
+    monkeypatch.setattr(batched, "quantile", spy)
+    return calls
+
+
+def test_stacked_flush_of_mixed_stream_counts_is_one_k2_launch(dev, monkeypatch):
+    """Tenants of one spec whose stream counts are no multiple of the
+    kernels' block still stack into one K2 launch: no plain
+    ``batched.quantile`` on the card, answers equal to it bit for bit."""
+    qs = [0.01, 0.5, 0.99]
+    names = ("a", "b", "c")
+    srv = _card_server(dev, names=names, sizes=(1000, 1024, 77))
+    tickets = [srv.submit(name, qs) for name in names]
+    plain = _plain_calls_on_card(monkeypatch)
+    kernels.reset_launch_counts()
+    srv.flush()
+    counts = kernels.launch_counts()
+    assert counts["fused_quantile"] == 1 and sum(counts.values()) == 1 and plain == []
+    assert srv.stats()["fused_dispatches"] == 1
+    monkeypatch.undo()
+    for tk in tickets:
+        f = srv.tenant(tk.tenant)
+        assert tk.result.tier == "xla"
+        assert torch.equal(torch.from_numpy(tk.result.values),
+                           batched.quantile(f.spec, f.state, qs).cpu())
+
+
+def test_serve_floor_and_hedge_launch_k2(dev, monkeypatch):
+    """A single tenant's flush inside the floor margin, and the hedge of a
+    primary that straggled past ``hedge_after_s``, answer on the ``xla``
+    floor with K2 and run no plain ``batched.quantile`` on the card; both
+    equal it bit for bit."""
+    qs = (0.5, 0.99)
+    srv = _card_server(dev, names=("a",), n=1000, floor_margin_s=0.02)
+    want = batched.quantile(srv.tenant("a").spec, srv.tenant("a").state, qs).cpu().numpy()
+    plain = _plain_calls_on_card(monkeypatch)
+    kernels.reset_launch_counts()
+    tk = srv.submit("a", qs, deadline_s=0.01)
+    srv.flush()
+    assert tk.result.tier == "xla" and not tk.result.hedged
+    assert kernels.launch_counts()["fused_quantile"] == 1 and plain == []
+    assert np.array_equal(tk.result.values, want)
+    # A serving clock that moves 0.1 s a read: every primary straggles.
+    ticks = iter(range(1 << 20))
+    srv = _card_server(dev, names=("b",), clock=lambda: 0.1 * next(ticks),
+                       default_deadline_s=1e6, cache_capacity=0)
+    kernels.reset_launch_counts()
+    res = srv.query("b", qs)
+    counts = kernels.launch_counts()
+    assert res.hedged and res.tier == "overlap" and srv.stats()["hedges"] == 1
+    assert counts["fused_quantile_tiles_overlap"] == 1 and counts["fused_quantile"] == 1
+    assert plain == []
+    monkeypatch.undo()
+    f = srv.tenant("b")
+    assert np.array_equal(res.values, batched.quantile(f.spec, f.state, qs).cpu().numpy())
+
+
+def test_repeat_window_query_launches_the_ladder_kernel(dev, monkeypatch):
+    """A window query folds the maintained components and decodes the fold
+    through a throwaway facade's ladder (K5 on this traffic); a repeat on
+    the unchanged window decodes the cached fold again through K5, with no
+    K2 and no new fold; both equal ``oracle_quantile``, which decodes with
+    the plain ``batched.quantile`` and launches nothing.  The full re-merge
+    lane (``SKETCHES_TPU_WINDOW_AGG=0``) decodes with one K2."""
+    from sketches_tpu_torch import windows
+
+    qs = [0.01, 0.5, 0.99]
+
+    def ring():
+        clk = windows.VirtualClock(0.0)
+        w = windows.WindowedSketch(1024, relative_accuracy=0.01, n_bins=512, clock=clk,
+                                   config=windows.WindowConfig((5.0, 20.0), (3, 3)), device=dev)
+        r = np.random.RandomState(42)
+        for _ in range(12):
+            clk.advance(2.5)
+            w.add((r.lognormal(0, 2, (1024, 256))
+                   * np.where(r.rand(1024, 256) < 0.4, -1, 1)).astype(np.float32))
+        return w
+
+    w = ring()
+    kernels.reset_launch_counts()
+    first = w.quantile(qs, window=None)
+    counts = kernels.launch_counts()
+    assert counts["fused_quantile_tiles_overlap"] == 1 and counts["fused_quantile"] == 0
+    merges = w.agg_stats()["query_merges"]
+    kernels.reset_launch_counts()
+    again = w.quantile(qs, window=None)
+    counts = kernels.launch_counts()
+    assert counts["fused_quantile_tiles_overlap"] == 1 and counts["fused_quantile"] == 0
+    assert w.agg_stats()["query_merges"] == merges
+    kernels.reset_launch_counts()
+    oracle = windows.oracle_quantile(w, qs, window=None)
+    assert sum(kernels.launch_counts().values()) == 0
+    assert torch.equal(first, oracle) and torch.equal(again, oracle)
+    monkeypatch.setenv("SKETCHES_TPU_WINDOW_AGG", "0")
+    full = ring()
+    kernels.reset_launch_counts()
+    got = full.quantile(qs, window=None)
+    assert kernels.launch_counts()["fused_quantile"] == 1
+    assert torch.equal(got, windows.oracle_quantile(full, qs, window=None))
+
+
+def test_kernel_error_inside_serve_flush_raises(dev, monkeypatch):
+    """A kernel error in the stacked flush or in a tenant's own dispatch
+    raises out of the server: no hedge onto a plain path, no downgrade."""
+    from sketches_tpu_torch.resilience import EngineUnavailable
+
+    def broken(*a, **k):
+        raise EngineUnavailable("sk_quantile launch failed with CUDA error 700")
+
+    srv = _card_server(dev)
+    monkeypatch.setattr(kernels, "fused_quantile", broken)
+    for name in ("a", "b"):
+        srv.submit(name, [0.5])
+    with pytest.raises(EngineUnavailable, match="launch failed"):
+        srv.flush()
+    for name in ("fused_quantile_tiles_overlap", "fused_quantile_tiles", "fused_quantile_windowed"):
+        monkeypatch.setattr(kernels, name, broken)
+    with pytest.raises(EngineUnavailable, match="launch failed"):
+        srv.query("a", [0.9])
+    assert srv.stats()["hedges"] == 0 and srv.tenant("a")._query_disabled == set()
+
+
 def test_unarmed_kernel_tests_recorded_no_downgrade(dev):
     """Runs last: no un-armed card test above left a downgrade behind.
     Each was checked on its own as it ran (armed tests clear the ledger,

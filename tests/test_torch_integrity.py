@@ -678,6 +678,125 @@ def _detect_state_bitflip():
     return True
 
 
+def _server(seed, **cfg):
+    from sketches_tpu_torch import serve as ts
+
+    srv = ts.SketchServer(ts.ServeConfig(**cfg), clock=lambda: 0.0)
+    srv.add_tenant("a", 8, relative_accuracy=ALPHA, n_bins=128, device="cpu")
+    srv.ingest("a", mixed_batches(8, 64, seed=seed)[0])
+    return srv
+
+
+def _detect_serve_straggler():
+    srv = _server(72, cache_capacity=0)
+    want = srv.tenant("a").get_quantile_values([0.5]).numpy()
+    tf.arm(tf.SERVE_STRAGGLER, times=1)
+    res = srv.query("a", [0.5])
+    return res.hedged and res.tier == "xla" and np.array_equal(res.values, want)
+
+
+def _detect_serve_cache_poison():
+    srv = _server(73)
+    want = srv.query("a", [0.9]).values
+    tf.arm(tf.SERVE_CACHE_POISON, times=1)
+    res = srv.query("a", [0.9])
+    return (not res.cached and np.array_equal(res.values, want)
+            and srv.stats()["cache_poisoned"] == 1)
+
+
+def _detect_serve_queue_overflow():
+    srv = _server(74)
+    tf.arm(tf.SERVE_QUEUE_OVERFLOW, times=1)
+    try:
+        srv.query("a", [0.5])
+    except tr.ServeOverload as e:
+        return e.reason == "injected" and srv.stats()["shed"] == 1
+    return False
+
+
+def _ring(seed, steps=8):
+    from sketches_tpu_torch import windows as tw
+
+    clk = tw.VirtualClock(0.0)
+    w = tw.WindowedSketch(8, relative_accuracy=ALPHA, n_bins=128,
+                          config=tw.WindowConfig((5.0, 20.0), (3, 3)), clock=clk, device="cpu")
+    for b in mixed_batches(8, 16, seed=seed, n_batches=steps):
+        clk.advance(3.0)
+        w.add(b)
+    return w, clk
+
+
+def _detect_window_rotate_torn():
+    w, clk = _ring(75)
+    before = (w.ledger(), w.buckets())
+    clk.advance(12.0)
+    tf.arm(tf.WINDOW_ROTATE_TORN, times=1)
+    try:
+        w.add(mixed_batches(8, 16, seed=76)[0])
+        return False
+    except tr.InjectedFault:
+        pass
+    return (w.ledger(), w.buckets()) == before and not ti.check_window(w)
+
+
+def _detect_window_stack_torn():
+    w, _ = _ring(77)
+    tf.arm(tf.WINDOW_STACK_TORN, times=1)
+    w.window_plan(25.0)
+    return w._agg_stacks is None and tr.health()["tiers"].get("windows.agg") == "rebuild"
+
+
+def _detect_window_agg_stale():
+    w, _ = _ring(78)
+    w.quantile([0.5], window=25.0)
+    tf.arm(tf.WINDOW_AGG_STALE, times=1)
+    w.window_plan(25.0)
+    return ti.check_window(w).counters.get("window_agg", 0) > 0
+
+
+def _fabric(seed):
+    from sketches_tpu_torch import fabric as tfab
+
+    fab = tfab.ServeFabric(tfab.FabricConfig(n_hosts=4, replication=3), clock=lambda: 0.0)
+    fab.add_tenant("t", 8, relative_accuracy=ALPHA, n_bins=512, device="cpu")
+    # Data inside the spec's window: the replica sync's wire decode keeps
+    # it there, so the synced fingerprint matches the primary's.
+    fab.ingest("t", np.random.RandomState(seed).lognormal(0, 0.5, (8, 64)).astype(np.float32))
+    assert fab.sync("t") == 2
+    return fab
+
+
+def _detect_mesh_partition_heal():
+    fab = _fabric(79)
+    h = fab.placement("t")[1]
+    fab.partition_host(h)
+    tf.arm(tf.MESH_PARTITION_HEAL, times=1)
+    try:
+        fab.heal_partition(h)
+        return False
+    except tr.InjectedFault:
+        pass
+    tf.disarm()
+    return h not in fab.live_hosts() and fab.heal_partition(h) == 1
+
+
+def _detect_fabric_replica_stale():
+    """Sampled: each armed read corrupts a replica at read time; a flip
+    material enough to move the fingerprint is refused, and whatever serves
+    answers the primary's values."""
+    fab = _fabric(80)
+    want = fab.quantile("t", [0.5]).values
+    fab.partition_host(fab.placement("t")[0])
+    for seed in range(8):
+        tf.arm(tf.FABRIC_REPLICA_STALE, seed=seed, times=1)
+        res = fab.quantile("t", [0.5])
+        tf.disarm()
+        if not np.array_equal(res.values, want, equal_nan=True):
+            return False
+        fab.sync("t")
+    return fab.stats()["stale_refusals"] >= 1
+
+
 DETECTORS = {
     tf.NATIVE_LOAD: _detect_native_load,
     tf.PALLAS_LOWERING: _detect_pallas_lowering,
@@ -689,12 +808,14 @@ DETECTORS = {
     tf.DCN_PARTITION: _detect_dcn_partition,
     tf.RESHARD_TORN: _detect_reshard_torn,
     tf.STATE_BITFLIP: _detect_state_bitflip,
-}
-#: Consumed by the serving, windowed and fabric tiers (ROADMAP A10).
-PENDING_A10 = {
-    tf.SERVE_STRAGGLER, tf.SERVE_CACHE_POISON, tf.SERVE_QUEUE_OVERFLOW,
-    tf.WINDOW_ROTATE_TORN, tf.WINDOW_STACK_TORN, tf.WINDOW_AGG_STALE,
-    tf.MESH_PARTITION_HEAL, tf.FABRIC_REPLICA_STALE,
+    tf.SERVE_STRAGGLER: _detect_serve_straggler,
+    tf.SERVE_CACHE_POISON: _detect_serve_cache_poison,
+    tf.SERVE_QUEUE_OVERFLOW: _detect_serve_queue_overflow,
+    tf.WINDOW_ROTATE_TORN: _detect_window_rotate_torn,
+    tf.WINDOW_STACK_TORN: _detect_window_stack_torn,
+    tf.WINDOW_AGG_STALE: _detect_window_agg_stale,
+    tf.MESH_PARTITION_HEAL: _detect_mesh_partition_heal,
+    tf.FABRIC_REPLICA_STALE: _detect_fabric_replica_stale,
 }
 #: Declared, but the TPU ingest construction rungs it degrades between are
 #: not ported: no seam in the port.
@@ -702,9 +823,8 @@ NO_SEAM = {tf.PALLAS_INGEST_VARIANT}
 
 
 def test_site_closure_is_complete():
-    wired, pending, none = set(DETECTORS), PENDING_A10, NO_SEAM
-    assert not (wired & pending) and not (wired & none) and not (pending & none)
-    assert wired | pending | none == set(tf.SITES)
+    wired, none = set(DETECTORS), NO_SEAM
+    assert not wired & none and wired | none == set(tf.SITES)
     root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "sketches_tpu_torch")
     # How a seam reads each site: the index-set and coordinate sites
@@ -726,7 +846,7 @@ def test_site_closure_is_complete():
                     if re.search(rf"\bfaults\.{token}\b", text):
                         users.setdefault(site, []).append(name)
     # Every wired site but state.bitflip (consumed by a chaos driver, not a
-    # seam) is injected somewhere in the package; no pending or seamless
+    # seam) is injected somewhere in the package; no seamless
     # site is.
     assert set(users) == wired - {tf.STATE_BITFLIP}
 

@@ -14,8 +14,12 @@ against the JAX package's, on the CPU.
   exit codes and output.
 * The recorder ring bounds, drops and trims alike.
 
-The serve-driven cases of ``tests/test_tracing.py`` wait for the port of
-the serving tier.
+* The serve-driven cases of ``tests/test_tracing.py``: disarmed, serving
+  reads no clock and records nothing; a cache poison and an unstructured
+  admission error dump forensic bundles (the poison bundle names the same
+  entry, fingerprint included, as the JAX package's); structured refusals
+  dump nothing; ``explain`` reconstructs a served request's causal chain
+  line for line as the JAX package does; the CLI's exit codes agree.
 """
 
 import json
@@ -27,11 +31,13 @@ import pytest
 from sketches_tpu import batched as jb
 from sketches_tpu import faults as jf
 from sketches_tpu import resilience as jr
+from sketches_tpu import serve as js
 from sketches_tpu import telemetry as jt
 from sketches_tpu import tracing as jtr
 from sketches_tpu_torch import batched as tb
 from sketches_tpu_torch import faults as tf
 from sketches_tpu_torch import resilience as tr
+from sketches_tpu_torch import serve as ts
 from sketches_tpu_torch import telemetry as tt
 from sketches_tpu_torch import tracing as ttr
 from torch_obs_common import ENGINE_LABELS, arm_telemetry, reset_layers
@@ -233,3 +239,124 @@ def test_recorder_follows_telemetry_and_its_kill_switch(monkeypatch):
     monkeypatch.setattr(ttr, "_KILL", False)
     tt.enable()
     assert not ttr.enabled()
+
+
+# ---------------------------------------------------------------------------
+# Serve-driven cases
+# ---------------------------------------------------------------------------
+
+SERVE_SPEC = (jb.SketchSpec(relative_accuracy=0.02, n_bins=128),
+              tb.SketchSpec(relative_accuracy=0.02, n_bins=128))
+
+
+def _servers(clock=lambda: 5.0, **cfg):
+    """A one-tenant server in each package on a fixed serving clock."""
+    v = np.random.RandomState(7).lognormal(0.0, 0.5, (8, 64)).astype(np.float32)
+    out = []
+    for serve, spec, kw in ((js, SERVE_SPEC[0], {}), (ts, SERVE_SPEC[1], {"device": "cpu"})):
+        srv = serve.SketchServer(serve.ServeConfig(**cfg), clock=clock)
+        srv.add_tenant("a", 8, spec=spec, **kw)
+        srv.ingest("a", v)
+        out.append(srv)
+    return out
+
+
+def test_disarmed_seams_read_no_clock_and_record_nothing(monkeypatch):
+    def boom():  # pragma: no cover - firing IS the failure
+        raise AssertionError("clock read on the disarmed tracing path")
+
+    monkeypatch.setattr(tt, "clock", boom)
+    ttr.configure(clock=boom)
+    ttr.record_event("anything", free="text")
+    srv = ts.SketchServer(clock=lambda: 0.0)
+    srv.add_tenant("a", 8, spec=SERVE_SPEC[1], device="cpu")
+    srv.ingest("a", np.ones((8, 4), np.float32))
+    srv.query("a", [0.5, 0.99])
+    sk = tb.BatchedDDSketch(4, spec=SERVE_SPEC[1], device="cpu")
+    sk.add(np.ones((4, 8), np.float32))
+    sk.get_quantile_values([0.5])
+    assert ttr.events() == [] and ttr.stats()["recorded"] == 0
+
+
+def test_cache_poison_auto_dumps_naming_the_entry():
+    arm_telemetry()
+    details = []
+    for srv, faults, tracing in zip(_servers(), (jf, tf), (jtr, ttr)):
+        srv.query("a", [0.9])
+        faults.arm(faults.SERVE_CACHE_POISON, times=1)
+        srv.query("a", [0.9])
+        faults.disarm()
+        poison = [b for b in tracing.bundles() if b["reason"] == "serve.cache_poison"]
+        assert len(poison) == 1
+        assert "serve.cache.poisoned" in [e["kind"] for e in poison[0]["events"]]
+        details.append(poison[0]["trigger"]["detail"])
+    assert details[1] == details[0]
+    assert details[1]["tenant"] == "a" and details[1]["quantiles"] == "0.9"
+
+
+def test_unstructured_serve_error_auto_dumps(monkeypatch):
+    tt.enable()
+    srv = _servers()[1]
+
+    def broken(*a, **k):
+        raise tr.SketchValueError("internal invariant broke")
+
+    monkeypatch.setattr(srv, "_cache_get", broken)
+    with pytest.raises(tr.SketchValueError):
+        srv.submit("a", (0.5,))
+    assert ttr.last_bundle()["reason"] == "serve.submit"
+
+
+def test_structured_refusals_do_not_dump():
+    tt.enable()
+    srv = _servers(max_queue_depth=1, tenant_quota=1)[1]
+    srv.submit("a", (0.5,))
+    with pytest.raises(ts.ServeOverload):
+        srv.submit("a", (0.6,))
+    with pytest.raises(ts.DeadlineExceeded):
+        srv.submit("a", (0.7,), deadline_s=0.0)
+    assert ttr.last_bundle() is None
+
+
+def _served_bundles(monkeypatch, tmp_path=None):
+    """One served request in each package under seeded ids and frozen
+    clocks -> [(bundle, ticket, path)] (JAX first)."""
+    _freeze_clocks(monkeypatch)
+    arm_telemetry()
+    out = []
+    for srv, tracing in zip(_servers(), (jtr, ttr)):
+        tracing.seed_ids(17)
+        ticket = srv.submit("a", (0.5, 0.99))
+        srv.flush()
+        path = None if tmp_path is None else str(tmp_path / f"{len(out)}.json")
+        out.append((tracing.dump_forensics("drill", trace=ticket.trace, path=path), ticket,
+                    path))
+    return out
+
+
+def test_explain_reconstructs_the_causal_chain(monkeypatch):
+    (jb_, jtk, _), (tb_, ttk, _) = _served_bundles(monkeypatch)
+    assert ttk.trace.ids() == jtk.trace.ids()
+    lines, n = ttr.explain(tb_, ttk.trace.trace_hex)
+    assert (lines, n) == jtr.explain(jb_, jtk.trace.trace_hex)
+    text = "\n".join(lines)
+    assert n >= 3 and "this is the triggering trace" in lines[0]
+    assert text.index("serve.submit") < text.index("serve.cache.miss") < text.index(
+        "engine.query")
+    assert ttr.explain(tb_, "trigger")[1] == n
+    assert ttr.explain(tb_, ttk.trace.trace_id)[1] == n
+
+
+def test_explain_exit_codes(monkeypatch, tmp_path, capsys):
+    (_, jtk, jpath), (_, ttk, tpath) = _served_bundles(monkeypatch, tmp_path)
+    bad = tmp_path / "bad.json"
+    bad.write_text("{}")
+    for args in ([ttk.trace.trace_hex], ["trigger"], ["deadbeefdeadbeef"]):
+        got = [tracing.main(["--explain", path] + args)
+               for tracing, path in ((jtr, jpath), (ttr, tpath))]
+        out = capsys.readouterr().out
+        assert got[1] == got[0] == (1 if args == ["deadbeefdeadbeef"] else 0), args
+        if args != ["deadbeefdeadbeef"]:
+            assert "serve.submit" in out
+    assert ttr.main(["--explain", str(tmp_path / "missing.json"), "trigger"]) == 2
+    assert ttr.main(["--explain", str(bad), "trigger"]) == 2
