@@ -117,6 +117,22 @@ In these three phases a call of the plain ``batched.quantile`` or of the
 ``wxla`` tier on a card state, outside a comparison with a reference,
 fails the phase (``plain_quantile_on_card`` in each line).
 
+Last, because they arm integrity and faults globally, the chaos harness
+and the examples (``phase_chaos``, ``phase_examples``):
+
+* ``chaos``: the six campaigns through ``chaos.main([..., "--device",
+  "cuda:0"])`` at the JAX tests' step counts and seeds
+  (core 80/3, serve 60/5, elastic 60/3, adaptive 40/13, windowed 40/13,
+  fabric 40/5; the elastic and windowed meshes on eight value shards of
+  the one card): every verdict ``ok`` with nothing ``undetected``, the
+  core and serve ``(step, site, outcome)`` lists equal to the port's CPU
+  run of the same call; K1 (the ingest-variant driver) and K2 (the
+  quantile checks) must launch.  The health ledger is reset after each
+  verdict is read.
+* ``examples``: the eight examples' ``main(["--device", "cuda:0"])`` in
+  this process, each returning 0 with its closing line; ``wire_interop``
+  must launch K5.
+
 Every phase that arms nothing must leave ``resilience.health()`` without
 a downgrade (the host-tier and wire phases turn the native kill switch
 on, which records exactly one ``native`` event each); a demotion fails
@@ -2476,8 +2492,9 @@ def phase_observability(device, card: dict, times: dict) -> dict:
     require(c.get("batched.ingest_batches") == OBS_BATCHES
             and c.get("distributed.ingest_batches") == OBS_BATCHES,
             f"ingest counters {c}")
-    # Every batch of both facades went through K1.
-    require(c.get("ingest.variant.stock") == 2 * OBS_BATCHES, f"ingest.variant.stock {c}")
+    # Every batch of both facades went through K1, labelled with the
+    # JAX facades' default unit-weight rung.
+    require(c.get("ingest.variant.packed") == 2 * OBS_BATCHES, f"ingest.variant.packed {c}")
     exports, snap = _obs_checks_exports()
 
     # 5. Collapse drift on a 128-bin facade fed lognormal(0, 6) rows.
@@ -2570,7 +2587,7 @@ def phase_observability(device, card: dict, times: dict) -> dict:
         "card": card["smi"], "profiling": table, "exports": exports,
         "counters": {k: snap["counters"][k] for k in
                      ("batched.ingest_batches", "distributed.ingest_batches",
-                      "ingest.variant.stock", "accuracy.audits")},
+                      "ingest.variant.packed", "accuracy.audits")},
         "accuracy": {"quickstart": audit, "collapse_drift_reports": len(drift),
                      "max_collapsed_mass_frac": max(fracs)},
         "tracing": {"explain_events": n_events, "explain": lines},
@@ -3346,6 +3363,157 @@ def phase_fabric(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The chaos harness and the examples (ROADMAP A11)
+# ---------------------------------------------------------------------------
+
+# The six campaigns at the JAX tests' step counts and seeds; the elastic and
+# windowed meshes draw on ``chaos.POOL`` (8) entries of the card (value shards
+# share it).
+CHAOS_CALLS = (("core", 80, 3), ("serve", 60, 5), ("elastic", 60, 3),
+               ("adaptive", 40, 13), ("windowed", 40, 13), ("fabric", 40, 5))
+# Campaigns whose card events must equal the port's own CPU run of the call.
+CHAOS_CPU_TWINS = ("core", "serve")
+# Each example and (a part of) its closing line.
+EXAMPLES = (
+    ("chaos_drill", "drill complete: corruption detected, crash recovered exactly"),
+    ("latency_monitoring", "proto round-trip"),
+    ("wire_interop", "re-export: 4096/4096 blobs byte-identical"),
+    ("distributed_mesh", "elastic drill passed"),
+    ("heterogeneous_fleet", "OK"),
+    ("serve_load", "verdict           ok"),
+    ("windowed_dashboard", "windowed dashboard passed"),
+    ("fleet_dashboard", "SLO(s) within budget"),
+)
+
+
+def _sum_launches(total: dict, launches: dict) -> None:
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def _events(verdict) -> list:
+    return [(e["step"], e["site"], e["outcome"]) for e in verdict["events"]]
+
+
+def phase_chaos(device) -> dict:
+    """The six chaos campaigns on the card through the CLI
+    (``chaos.main([..., "--device", "cuda:0"])``), each
+    verdict ``ok`` with nothing ``undetected``; the core and serve
+    campaigns' ``(step, site, outcome)`` lists equal to the port's own
+    CPU run of the same call.  K1 (the ingest-variant driver's 128-stream
+    facade) and K2 (every quantile check, the facades' floor) must launch.
+    The health ledger is read into each row and reset after it."""
+    import contextlib
+    import io
+    import tempfile
+
+    from sketches_tpu_torch import chaos, faults, integrity, kernels, resilience
+
+    t_phase = time.perf_counter()
+    cpu_runs = {"core": chaos.run_campaign, "serve": chaos.run_serve_campaign}
+    rows, total = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
+        for name, steps, seed in CHAOS_CALLS:
+            path = os.path.join(tmp, f"{name}.json")
+            kernels.reset_launch_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = chaos.main(["--campaign", name, "--steps", str(steps), "--seed", str(seed),
+                                 "--device", str(device),
+                                 "--out", path])
+            seconds = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            with open(path, encoding="utf-8") as f:
+                verdict = json.load(f)
+            require(rc == 0 and verdict["ok"] and not verdict["outcomes"].get("undetected"),
+                    f"chaos {name}: rc {rc}, outcomes {verdict['outcomes']},"
+                    f" errors {verdict['errors'][:3]}")
+            row = {"steps": steps, "seed": seed, "n_faults": verdict["n_faults"],
+                   "outcomes": verdict["outcomes"], "seconds": seconds,
+                   "tiers": verdict["health"]["tiers"],
+                   "health_counters": verdict["health"]["counters"],
+                   "launches": launches, "summary": buf.getvalue().strip().splitlines()[-1]}
+            for key in ("mesh_sizes_visited", "reshards", "serve_stats", "fabric_stats"):
+                if key in verdict:
+                    row[key] = verdict[key]
+            resilience.reset()
+            if name in cpu_runs:
+                t0 = time.perf_counter()
+                cpu = cpu_runs[name](steps, seed, device="cpu")
+                row["cpu_seconds"] = time.perf_counter() - t0
+                card_ev, cpu_ev = _events(verdict), _events(cpu)
+                diff = [(a, b) for a, b in zip(card_ev, cpu_ev) if a != b]
+                require(card_ev == cpu_ev,
+                        f"chaos {name}: the card's events differ from the CPU run's:"
+                        f" {len(card_ev)} against {len(cpu_ev)}, first differences {diff[:4]}")
+                row["events_equal_cpu"] = True
+                resilience.reset()
+            _sum_launches(total, launches)
+            rows[name] = row
+    faults.disarm()
+    integrity.disarm()
+    integrity.reset()
+    resilience.reset()
+    for k in ("ingest_histogram", "fused_quantile"):
+        require(total.get(k, 0) > 0, f"chaos: {k} never launched")
+    out = {"campaigns": rows, "pool": [str(device)] * chaos.POOL, "launches": total,
+           "seconds": time.perf_counter() - t_phase}
+    emit("chaos", **out)
+    return out
+
+
+def phase_examples(device) -> dict:
+    """The eight examples on the card through their entry points
+    (``main(["--device", "cuda:0"])``, in this process so that each one's
+    launches are counted; ``fleet_dashboard``'s shards are processes of
+    their own, whose launches are not).  Each must return 0 and print its
+    closing line; ``wire_interop`` must launch K5."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from sketches_tpu_torch import faults, integrity, kernels, resilience, telemetry, tracing
+
+    t_phase = time.perf_counter()
+    rows, total = {}, {}
+    for name, closing in EXAMPLES:
+        module = importlib.import_module(f"sketches_tpu_torch.examples.{name}")
+        kernels.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = module.main(["--device", str(device)])
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        lines = buf.getvalue().strip().splitlines()
+        require(rc == 0 and lines and closing in lines[-1],
+                f"example {name}: rc {rc}, output ends {lines[-3:]}")
+        rows[name] = {"seconds": seconds, "launches": launches, "closing": lines[-1],
+                      "lines": len(lines)}
+        if name == "wire_interop":
+            rows[name]["bridge"] = next(ln for ln in lines if ln.startswith("stream 7"))
+        _sum_launches(total, launches)
+        for layer in (telemetry, tracing):
+            layer.disable()
+            layer.reset()
+        faults.disarm()
+        integrity.disarm()
+        integrity.reset()
+        resilience.reset()
+        torch.cuda.empty_cache()
+    require(rows["wire_interop"]["launches"]["fused_quantile_tiles_overlap"] > 0,
+            "examples: wire_interop never launched fused_quantile_tiles_overlap")
+    out = {"examples": rows, "launches": total, "seconds": time.perf_counter() - t_phase,
+           "note": "fleet_dashboard's shards run as processes of their own: their launches"
+                   " are not in its row"}
+    emit("examples", **out)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3440,11 +3608,15 @@ def main(argv=None) -> int:
     require_ledger("serve")
     fab = phase_fabric(device)
     require_ledger("fabric")
+    torch.cuda.empty_cache()
+    # Last: the campaigns and the examples arm integrity and faults globally.
+    chaos_out = phase_chaos(device)
+    examples_out = phase_examples(device)
 
     def launched(name):
-        return sum(path["launches"][name]
+        return sum(path["launches"].get(name, 0)
                    for path in (pos, mixed, dist, wire, ckpt, backends, robust, obs, win,
-                                serving, fab))
+                                serving, fab, chaos_out, examples_out))
 
     src = "sketches_tpu_torch/csrc/"
     rows = [

@@ -840,6 +840,7 @@ class BatchedDDSketch:
         use_kernels = kernels.select_engine(spec, n_streams, engine, self.device)
         self.engine = "kernel" if use_kernels else "plain"
         self._kernel_ingest = use_kernels
+        self._ingest_variant_demoted = False
         self._kernel_query = use_kernels and not spec.bins_integer
         self._wxla_ok = spec.n_bins % TILE == 0
         self._window_plan = None
@@ -913,11 +914,37 @@ class BatchedDDSketch:
             and not (self.spec.bins_integer and weights is not None)
         ):
             self._rows_done = 0
+            variant = (
+                "stock"
+                if self._ingest_variant_demoted
+                else kernels.choose_ingest_engine(self.spec, weighted=weights is not None)
+            )
             try:
+                # The whole-kernel site sits above the rung ladder: a
+                # pallas.ingest fault demotes straight to the plain path.
                 if faults._ACTIVE:
                     faults.inject(faults.PALLAS_INGEST)
+                if variant != "stock" and faults._ACTIVE:
+                    # A non-stock rung that fails demotes to the stock rung
+                    # (health ledger), not to the plain path.  K1 serves
+                    # every rung and nothing was written yet, so running
+                    # the stock rung replays the batch exactly.
+                    try:
+                        faults.inject(faults.PALLAS_INGEST_VARIANT, tier=variant)
+                    except Exception as ev:
+                        if not resilience.survivable(ev, self.device.type == "cuda"):
+                            raise
+                        self._ingest_variant_demoted = True
+                        resilience.record_downgrade(
+                            f"{self._health_component}.ingest_variant",
+                            variant, "stock", repr(ev),
+                        )
+                        variant = "stock"
                 _eng = "kernel"
-                self._stream_op(functools.partial(kernels.add, self.spec), values, weights)
+                self._stream_op(
+                    functools.partial(kernels.add, self.spec, variant=variant),
+                    values, weights,
+                )
             except Exception as e:
                 # The ingest kernel is lost: this facade takes the plain
                 # path for good and replays the stream chunks the kernel
@@ -947,10 +974,15 @@ class BatchedDDSketch:
         if _t0 is not None:
             telemetry.finish_span("ingest_s", _t0, component="batched", engine=_eng)
             telemetry.counter_inc("batched.ingest_batches")
-            # K1 computes the stock construction's contract; the other
-            # construction rungs are not ported, so they never count.
+            # K1 serves every construction rung: count the rung label the
+            # JAX facade would pick here (no separate construction ran).
+            # The facade picks only stock or packed; literal names for the
+            # telemetry-names inventory.
             if _eng == "kernel":
-                telemetry.counter_inc("ingest.variant.stock")
+                if variant == "packed":
+                    telemetry.counter_inc("ingest.variant.packed")
+                else:
+                    telemetry.counter_inc("ingest.variant.stock")
         if tracing._ACTIVE:
             tracing.record_event("engine.ingest", engine=_eng, component="batched")
         # Device-clocked attribution after the host span closes: the span

@@ -81,10 +81,11 @@ site                    simulates
 Site names are the JAX package's, ``pallas.*`` included: they name the
 seam, not the kernel technology.  The serve, window and fabric sites are
 consumed by ``serve``, ``windows`` and ``fabric``, at the JAX package's
-seams.  ``pallas.ingest_variant`` is declared but
-has no seam in the port: the four TPU ingest construction rungs it
-degrades between are not ported (the port keeps the contract, not the TPU
-construction), so nothing here injects it.
+seams.  ``pallas.ingest_variant`` sits in the facade's kernel ingest,
+in the JAX order: one kernel (K1) computes every rung's contract, so the
+rung is the label the facade carries for the health ledger, this site
+and the ``ingest.variant.*`` counter, and a demotion to ``stock`` replays
+the batch exactly.
 
 Arming: programmatically via :func:`arm` / :func:`active` (tests), or at
 process start via the ``SKETCHES_TPU_FAULTS`` environment variable --

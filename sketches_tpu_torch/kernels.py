@@ -22,9 +22,10 @@ else touches it.
 The plans (``plan_window``, ``plan_state_window``, ``plan_tile_query``,
 ``tile_query_eligible``, ``choose_query_engine``) are the JAX package's,
 so the port routes a query to the same tier for the same state.  The
-overlap switch, ``SKETCHES_TPU_OVERLAP`` (:func:`overlap_enabled`, declared
-in ``analysis/registry.py`` with every other switch), is the one
-environment variable the kernels read.
+overlap switch, ``SKETCHES_TPU_OVERLAP`` (:func:`overlap_enabled`), and the
+packed-ingest switch, ``SKETCHES_TPU_INGEST_PACKED``
+(:func:`packed_ingest_enabled`), both declared in ``analysis/registry.py``
+with every other switch, are the environment variables the kernels read.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ __all__ = [
     "select_engine",
     "INGEST_VARIANTS",
     "ingest_variant_supported",
+    "packed_ingest_enabled",
     "choose_ingest_engine",
     "ingest_histogram",
     "ingest_histogram_plain",
@@ -100,11 +102,18 @@ def ingest_variant_supported(spec: SketchSpec, variant: str, weighted: bool) -> 
     return variant == "stock" or not weighted
 
 
+def packed_ingest_enabled() -> bool:
+    """Whether the facades may select a non-stock ingest rung: the
+    ``SKETCHES_TPU_INGEST_PACKED`` kill switch (``0`` pins every auto pick
+    to ``stock``), read at each call as the JAX package reads it."""
+    return registry.enabled(registry.INGEST_PACKED)
+
+
 def choose_ingest_engine(spec: SketchSpec, weighted: bool, variant: Optional[str] = None) -> str:
-    """The JAX facades' rung policy with its kill switch at the default:
-    ``packed`` for unit-weight calls, ``stock`` for weighted ones; an
-    explicit ``variant`` is validated and honoured.  No environment
-    variable is read."""
+    """The JAX facades' rung policy: ``packed`` for unit-weight calls while
+    the ``SKETCHES_TPU_INGEST_PACKED`` kill switch allows it, ``stock``
+    otherwise; an explicit ``variant`` is validated and honoured.  K1
+    computes every rung's contract, so the rung only labels the call."""
     if variant is not None:
         if not ingest_variant_supported(spec, variant, weighted):
             raise SpecError(
@@ -112,7 +121,9 @@ def choose_ingest_engine(spec: SketchSpec, weighted: bool, variant: Optional[str
                 f" weighted={weighted} (unit-weight construction only)"
             )
         return variant
-    return "stock" if weighted else "packed"
+    if weighted or not packed_ingest_enabled():
+        return "stock"
+    return "packed"
 
 
 def supports(spec: SketchSpec, n_streams: int, batch: Optional[int] = None) -> bool:

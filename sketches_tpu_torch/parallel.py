@@ -562,6 +562,8 @@ class DistributedDDSketch:
         self._health_component = "distributed"
         # The engine that served the last partial's ingest (``_local_add``).
         self._served = "plain"
+        # The unit-weight rung label, bound here as the JAX facade binds it.
+        self._ingest_variant = kernels.choose_ingest_engine(self.spec, weighted=False)
 
     # -- ingest --------------------------------------------------------------
     def _local_add(self, st: SketchState, values, weights) -> SketchState:
@@ -629,9 +631,13 @@ class DistributedDDSketch:
         if _t0 is not None:
             telemetry.finish_span("ingest_s", _t0, component="distributed", engine="shards")
             telemetry.counter_inc("distributed.ingest_batches")
-            # K1 computes the stock construction's contract.
-            if self._served == "kernel":
-                telemetry.counter_inc("ingest.variant.stock")
+            # K1 serves every construction rung: count the unit-weight
+            # rung the JAX facade binds at construction, as it does.
+            if self._served == "kernel" and weights is None:
+                if self._ingest_variant == "stock":
+                    telemetry.counter_inc("ingest.variant.stock")
+                else:
+                    telemetry.counter_inc("ingest.variant.packed")
         if _p0 is not None:
             profiling.record("ingest", "shards", _p0, self._shards)
         if accuracy._ACTIVE:

@@ -382,6 +382,39 @@ def _partials(sj, st, k, seed, collapsed=(2,)):
     return [_to_jax(p) for p in tparts], tparts
 
 
+def test_merge_equals_merge_then_collapse_reference_fingerprints_match_jax():
+    """``test_backends``' merge-then-collapse acceptance on the port: the
+    mixed-gamma merge collapsed one level deeper fingerprints like the
+    merge of the operands collapsed first, and each fingerprint equals the
+    JAX package's on the same (mid-bucket) traffic."""
+    from sketches_tpu import integrity as ji
+    from sketches_tpu_torch import integrity as ti
+
+    sj, st = _aspecs(n_bins=128)
+    r = np.random.RandomState(5)
+    va = _mid_bucket(r.lognormal(0, 1.0, (2, 512)))
+    vb = _mid_bucket(r.lognormal(1.0, 2.5, (2, 1024)))
+    fps = []
+    for U, spec, integrity, wrap in (
+        (JU, sj, ji, jnp.asarray), (TU, st, ti, torch.as_tensor),
+    ):
+        a = U.AdaptiveDDSketch(2, spec=spec, **({} if U is JU else {"device": "cpu"}))
+        b = U.AdaptiveDDSketch(2, spec=spec, **({} if U is JU else {"device": "cpu"}))
+        a.add(va)
+        b.add(vb)
+        merged = U.merge(spec, a.state, b.state)
+        deeper = wrap(np.asarray(merged.level) + 1)
+        lhs = U.collapse_to(spec, merged, deeper)
+        rhs = U.merge(spec, U.collapse_to(spec, a.state, deeper),
+                      U.collapse_to(spec, b.state, deeper))
+        fl, fr = integrity.fingerprint(spec, lhs.base), integrity.fingerprint(spec, rhs.base)
+        np.testing.assert_allclose(fl, fr, rtol=1e-9, atol=1e-6)
+        np.testing.assert_array_equal(np.asarray(lhs.base.count), np.asarray(rhs.base.count))
+        fps.append((fl, fr))
+    for j, t in zip(*fps):
+        np.testing.assert_array_equal(t, j)
+
+
 def test_psum_merge_list_form_matches_jax():
     sj, st = _aspecs(n_bins=256, max_collapses=3)
     jparts, tparts = _partials(sj, st, 4, seed=7)

@@ -698,6 +698,56 @@ def test_ingest_demotion_on_the_card_replays_exactly(dev, armed):
             assert torch.equal(a, b), f
 
 
+def test_ingest_variant_demotion_on_the_card_stays_on_k1(dev, armed):
+    """An armed ``pallas.ingest_variant`` fault demotes the rung to
+    ``stock`` (not the facade to the plain path): K1 keeps launching and
+    the batch lands exactly as on a plain facade."""
+    from sketches_tpu_torch import faults, resilience
+
+    r = np.random.RandomState(34)
+    n = 1024
+    sk = batched.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512, device=dev,
+                                 engine="kernel")
+    plain = batched.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512, device=dev,
+                                    engine="plain")
+    vs = [r.lognormal(0, 2, (n, 256)).astype(np.float32) for _ in range(2)]
+    for s in (sk, plain):
+        s.add(vs[0])
+    kernels.reset_launch_counts()
+    try:
+        faults.arm(faults.PALLAS_INGEST_VARIANT, times=1)
+        sk.add(vs[1])
+        faults.disarm()
+        plain.add(vs[1])
+        assert [(e["component"], e["from_tier"], e["to_tier"])
+                for e in resilience.health()["downgrades"]] == [
+            ("batched.ingest_variant", "packed", "stock")]
+    finally:
+        faults.disarm()
+        resilience.reset()
+    assert sk._kernel_ingest and kernels.launch_counts()["ingest_histogram"] > 0
+    for f in batched.LEAVES:
+        a, b = getattr(sk.state, f), getattr(plain.state, f)
+        if f == "sum":
+            assert torch.allclose(a, b, rtol=1e-5)
+        else:
+            assert torch.equal(a, b), f
+
+
+def test_chaos_core_campaign_on_the_card_equals_the_cpu_run(dev, armed):
+    from sketches_tpu_torch import chaos
+
+    kernels.reset_launch_counts()
+    card = chaos.run_campaign(80, 3, device=dev)
+    launches = kernels.launch_counts()
+    cpu = chaos.run_campaign(80, 3, device="cpu")
+    assert card["ok"], card["errors"]
+    assert [(e["step"], e["site"], e["outcome"]) for e in card["events"]] == [
+        (e["step"], e["site"], e["outcome"]) for e in cpu["events"]]
+    assert card["final_count"] == cpu["final_count"] == card["expected_count"]
+    assert launches["ingest_histogram"] > 0 and launches["fused_quantile"] > 0
+
+
 def test_state_bitflips_on_the_card_equal_the_cpu(dev, armed):
     from sketches_tpu_torch import faults
 

@@ -596,6 +596,30 @@ def _detect_pallas_ingest():
             and float(sk.state.count.double().sum()) == before + 128 * 128)
 
 
+def _detect_pallas_ingest_variant():
+    """A non-stock ingest rung that fails degrades to the stock rung
+    (ledger-recorded): the kernel path survives and the replayed batch's
+    mass is exact.  ``engine="auto"`` takes the kernel path here (K1's
+    plain version); ``engine="kernel"`` demands a card."""
+    from sketches_tpu_torch import kernels as tk
+
+    spec = tb.SketchSpec(relative_accuracy=0.02, n_bins=128)
+    n = tk._BN
+    if tk.choose_ingest_engine(spec, weighted=False) == "stock":
+        return True  # kill switch pinned the ladder: nothing to degrade
+    sk = tb.BatchedDDSketch(n, spec=spec, engine="auto", device="cpu")
+    tf.arm(tf.PALLAS_INGEST_VARIANT, times=1)
+    try:
+        sk.add(np.full((n, tk._BS), 1.0, np.float32))
+    finally:
+        tf.disarm()
+    return (
+        tr.health()["tiers"].get("batched.ingest_variant") == "stock"
+        and sk._kernel_ingest
+        and float(sk.state.count.double().sum()) == float(n * tk._BS)
+    )
+
+
 def _detect_wire_blob():
     sk = _batched(63, n=64)
     blobs = tw.state_to_bytes(sk.spec, sk.state)
@@ -801,6 +825,7 @@ DETECTORS = {
     tf.NATIVE_LOAD: _detect_native_load,
     tf.PALLAS_LOWERING: _detect_pallas_lowering,
     tf.PALLAS_INGEST: _detect_pallas_ingest,
+    tf.PALLAS_INGEST_VARIANT: _detect_pallas_ingest_variant,
     tf.WIRE_BLOB: _detect_wire_blob,
     tf.CHECKPOINT_WRITE: _detect_checkpoint_write,
     tf.MESH_SHARD: _detect_mesh_shard,
@@ -817,9 +842,8 @@ DETECTORS = {
     tf.MESH_PARTITION_HEAL: _detect_mesh_partition_heal,
     tf.FABRIC_REPLICA_STALE: _detect_fabric_replica_stale,
 }
-#: Declared, but the TPU ingest construction rungs it degrades between are
-#: not ported: no seam in the port.
-NO_SEAM = {tf.PALLAS_INGEST_VARIANT}
+#: Declared sites with no seam in the port (none left).
+NO_SEAM = set()
 
 
 def test_site_closure_is_complete():
@@ -845,10 +869,9 @@ def test_site_closure_is_complete():
                         k for k in tf.__all__ if getattr(tf, k, None) == site)
                     if re.search(rf"\bfaults\.{token}\b", text):
                         users.setdefault(site, []).append(name)
-    # Every wired site but state.bitflip (consumed by a chaos driver, not a
-    # seam) is injected somewhere in the package; no seamless
-    # site is.
-    assert set(users) == wired - {tf.STATE_BITFLIP}
+    # Every wired site is read somewhere in the package: state.bitflip by
+    # the chaos drivers, every other site at its seam.
+    assert set(users) == wired
 
 
 @pytest.mark.parametrize("site", sorted(DETECTORS))

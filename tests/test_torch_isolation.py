@@ -46,7 +46,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "from sketches_tpu_torch.analysis import registry\n"
         "from sketches_tpu_torch import checkpoint, ddsketch, native, pb, store\n"
         "from sketches_tpu_torch import accuracy, profiling, telemetry, tracing\n"
-        "from sketches_tpu_torch import fabric, serve, windows\n"
+        "from sketches_tpu_torch import chaos, fabric, serve, windows\n"
+        "from sketches_tpu_torch.examples import chaos_drill, distributed_mesh\n"
+        "from sketches_tpu_torch.examples import fleet_dashboard, heterogeneous_fleet\n"
+        "from sketches_tpu_torch.examples import latency_monitoring, serve_load\n"
+        "from sketches_tpu_torch.examples import windowed_dashboard, wire_interop\n"
         "from sketches_tpu_torch.pb import proto, wire\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"

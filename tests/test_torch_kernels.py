@@ -235,6 +235,23 @@ def test_choose_query_engine_table(window_plan, tile_plan):
         )
 
 
+@pytest.mark.parametrize("packed", [None, "1", "0"])
+def test_choose_ingest_engine_honours_the_kill_switch_like_jax(packed, monkeypatch):
+    if packed is None:
+        monkeypatch.delenv("SKETCHES_TPU_INGEST_PACKED", raising=False)
+    else:
+        monkeypatch.setenv("SKETCHES_TPU_INGEST_PACKED", packed)
+    js, ts = _specs(n_bins=2048)
+    assert tk.packed_ingest_enabled() == jk.packed_ingest_enabled() == (packed != "0")
+    for weighted in (False, True):
+        assert tk.choose_ingest_engine(ts, weighted) == jk.choose_ingest_engine(js, weighted)
+        for v in tk.INGEST_VARIANTS:
+            if tk.ingest_variant_supported(ts, v, weighted):
+                assert tk.choose_ingest_engine(ts, weighted, v) == jk.choose_ingest_engine(
+                    js, weighted, v) == v
+    assert tk.choose_ingest_engine(ts, False) == ("stock" if packed == "0" else "packed")
+
+
 def test_supports_select_engine_and_variants():
     js, ts = _specs(n_bins=2048)
     for n, b in ((128, None), (128, 256), (100, None), (128, 100)):

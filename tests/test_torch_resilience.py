@@ -270,6 +270,73 @@ def test_ingest_demotion_replays_exactly_and_matches_jax():
                                           np.asarray(getattr(j.state, f)), err_msg=f)
 
 
+def test_ingest_variant_demotion_matches_jax():
+    """A fault at a non-stock ingest rung demotes both facades to the stock
+    rung (not off the kernel path), records the same ledger step, replays
+    the batch exactly, and counts each call under the rung JAX counts."""
+    from sketches_tpu import telemetry as jt
+    from sketches_tpu_torch import telemetry as tt
+
+    v1, v2, v3 = mixed_batches(N, 128, seed=18, n_batches=3)
+    j = jb.BatchedDDSketch(N, relative_accuracy=ALPHA, n_bins=512, engine="pallas")
+    t = tb.BatchedDDSketch(N, relative_accuracy=ALPHA, n_bins=512, device="cpu")
+    try:
+        for telemetry in (jt, tt):
+            telemetry.enable()
+            telemetry.reset()
+        for v in (v1, v2):
+            jax.block_until_ready(j.add(v).state)
+            t.add(v)
+            if v is v1:
+                for f in (jf, tf):
+                    f.arm(f.PALLAS_INGEST_VARIANT, times=1)
+        jax.block_until_ready(j.add(v3).state)
+        t.add(v3)
+        jc, tc = jt.snapshot()["counters"], tt.snapshot()["counters"]
+    finally:
+        for telemetry in (jt, tt):
+            telemetry.disable()
+            telemetry.reset()
+    assert steps(tr.health()) == steps(jr.health()) == [
+        ("batched.ingest_variant", "packed", "stock")]
+    assert t._kernel_ingest and t._ingest_variant_demoted
+    for k in ("ingest.variant.packed", "ingest.variant.stock"):
+        assert tc.get(k) == jc.get(k), k
+    # The first add recentres (plain); the second demotes to stock.
+    assert tc.get("ingest.variant.stock") == 2 and "ingest.variant.packed" not in tc
+    for f in tb.LEAVES:
+        if f != "sum":
+            np.testing.assert_array_equal(getattr(t.state, f).numpy(),
+                                          np.asarray(getattr(j.state, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("packed", ["1", "0"])
+def test_ingest_rung_counter_matches_jax(packed, monkeypatch):
+    """Un-faulted, each kernel ingest counts under the rung the JAX facade
+    runs: ``packed`` by default, ``stock`` under the kill switch."""
+    from sketches_tpu import telemetry as jt
+    from sketches_tpu_torch import telemetry as tt
+
+    monkeypatch.setenv("SKETCHES_TPU_INGEST_PACKED", packed)
+    j = jb.BatchedDDSketch(N, relative_accuracy=ALPHA, n_bins=512, engine="pallas")
+    t = tb.BatchedDDSketch(N, relative_accuracy=ALPHA, n_bins=512, device="cpu")
+    try:
+        for telemetry in (jt, tt):
+            telemetry.enable()
+            telemetry.reset()
+        for v in mixed_batches(N, 128, seed=19, n_batches=3):
+            jax.block_until_ready(j.add(v).state)
+            t.add(v)
+        jc, tc = jt.snapshot()["counters"], tt.snapshot()["counters"]
+    finally:
+        for telemetry in (jt, tt):
+            telemetry.disable()
+            telemetry.reset()
+    rung = "ingest.variant.packed" if packed == "1" else "ingest.variant.stock"
+    assert tc.get(rung) == jc.get(rung) == 2  # the first add recentres
+    assert {k for k in tc if k.startswith("ingest.variant.")} == {rung}
+
+
 def test_ingest_demotion_mid_batch_replays_only_the_rest(monkeypatch):
     """A kernel that fails after some stream chunks were written: the plain
     path finishes the batch from the first unwritten chunk -- no chunk is
