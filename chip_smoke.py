@@ -117,6 +117,16 @@ In these three phases a call of the plain ``batched.quantile`` or of the
 ``wxla`` tier on a card state, outside a comparison with a reference,
 fails the phase (``plain_quantile_on_card`` in each line).
 
+Then the ``multiprocess`` phase (``phase_multiprocess``), in worker
+processes the script starts as ``chip_smoke.py --mp-worker ...``: two
+gloo ranks on the one card, each with two value shards of a pinned
+262,144 x 512 state (hosts derived from the world size), K1 ingest, the
+hierarchical fold (``psum_merge`` over ``make_global_mesh``'s cells: the
+inner fold on the card, one host-staged ``all_reduce`` a leaf across the
+ranks), K5 and K2 on the fold, held by rank 0 to a single-process
+four-shard ``DistributedDDSketch`` of the same data; then a world of one
+NCCL rank whose collective fold leaves the state bit-equal.
+
 Last, because they arm integrity and faults globally, the chaos harness
 and the examples (``phase_chaos``, ``phase_examples``):
 
@@ -3364,6 +3374,226 @@ def phase_fabric(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The multi-process mesh over torch.distributed (ROADMAP A7)
+# ---------------------------------------------------------------------------
+
+# Host-staged (gloo) folds: the standing cut of host-bound parts (PERF.md
+# section 4) to 262,144 streams.
+MP_STREAMS = 1 << 18
+MP_SHARDS = 4  # value shards of the whole mesh, two a rank
+MP_LOCAL = 2
+MP_KEY_OFFSET = -256  # one pinned window on every rank (offsets fold with max)
+MP_TIMEOUT_S = 300
+
+
+def _mp_seconds(fn):
+    """``fn()`` and its host seconds up to a synchronize of the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _mp_state_bytes(st) -> int:
+    from sketches_tpu_torch.batched import LEAVES
+
+    return sum(getattr(st, f).numel() * getattr(st, f).element_size() for f in LEAVES)
+
+
+def _mp_gloo_rank(rank: int, world: int) -> dict:
+    """One rank of the two-rank gloo job on the one card: its two value
+    shards' slices through K1 (a pinned-window ``DistributedDDSketch`` over
+    its cells), the hierarchical fold (the inner fold on the card, then one
+    host-staged ``all_reduce`` a leaf), and the folded state on the default
+    route (K5) and the ``xla`` floor (K2).  Rank 0 then holds the fold and
+    the answers to a single-process ``DistributedDDSketch`` over all four
+    value shards, fed the same data."""
+    import torch
+    import torch.distributed as dist
+
+    from sketches_tpu_torch import kernels
+    from sketches_tpu_torch.batched import LEAVES, BatchedDDSketch
+    from sketches_tpu_torch.parallel import (DistributedDDSketch, SketchMesh, make_global_mesh,
+                                             make_hierarchical_mesh, psum_merge)
+
+    dev = torch.device("cuda", 0)
+    g = make_global_mesh(("values",), devices=[dev] * MP_LOCAL)
+    mesh = make_hierarchical_mesh(devices=g.devices, ranks=g.ranks)
+    require(mesh.n_hosts == world, f"n_hosts {mesh.n_hosts} is not the world size {world}")
+    built = mesh.build()
+    require(built.shape == {"dcn": world, "ici": MP_LOCAL}, f"mesh shape {built.shape}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    data = torch.empty((MP_SHARDS, MP_STREAMS, BATCH), device=dev).log_normal_(0.0, 2.0,
+                                                                             generator=gen)
+    mine = data[rank * MP_LOCAL : (rank + 1) * MP_LOCAL].permute(1, 0, 2).reshape(
+        MP_STREAMS, MP_LOCAL * BATCH).contiguous()
+    kw = dict(relative_accuracy=ALPHA, n_bins=N_BINS, key_offset=MP_KEY_OFFSET)
+    kernels.reset_launch_counts()
+    local = DistributedDDSketch(MP_STREAMS, mesh=SketchMesh(devices=[dev] * MP_LOCAL), **kw)
+    require(local.engine == "kernel", f"the local facade's engine is {local.engine}")
+    dist.barrier()
+    _, ingest_s = _mp_seconds(lambda: local.add(mine))
+    dist.barrier()
+    folded, fold_s = _mp_seconds(
+        lambda: psum_merge(local.shard_partials()[0], axis_name=("dcn", "ici"), mesh=mesh))
+    facade = BatchedDDSketch(MP_STREAMS, spec=local.spec, state=folded)
+    (tier, ans), query_s = _mp_seconds(lambda: facade.get_quantile_values_resolved(list(QS)))
+    (tier_floor, ans_floor), floor_s = _mp_seconds(
+        lambda: facade.get_quantile_values_resolved(list(QS), disabled_tiers=("windowed", "wxla")))
+    launches = kernels.launch_counts()
+    require((tier, tier_floor) == ("overlap", "xla"), f"tiers {tier}, {tier_floor}")
+    require(int(folded.count[0]) == MP_SHARDS * BATCH, f"count {int(folded.count[0])}")
+    fold_bytes = _mp_state_bytes(folded)
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(dev),
+           "mesh": built.shape, "ingest_s": ingest_s, "fold_s": fold_s,
+           "query_overlap_s": query_s, "query_xla_s": floor_s, "fold_bytes": fold_bytes,
+           "fold_host_staged_GBps": fold_bytes / fold_s / 1e9, "launches": launches,
+           "tiers": [tier, tier_floor]}
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        ref = DistributedDDSketch(MP_STREAMS, mesh=SketchMesh(devices=[dev] * MP_SHARDS), **kw)
+        ref.add(data.permute(1, 0, 2).reshape(MP_STREAMS, MP_SHARDS * BATCH))
+        want = ref.merged_state()
+        diff = [f for f in LEAVES if f != "sum"
+                and not torch.equal(getattr(folded, f), getattr(want, f))]
+        require(not diff, f"the two-rank fold differs from one process's in {diff}")
+        sum_rel = require_rel(folded.sum, want.sum, 1e-6, "folded sum")
+        ref_tier, ref_ans = ref.get_quantile_values_resolved(list(QS))
+        ref_floor_tier, ref_floor = ref.get_quantile_values_resolved(
+            list(QS), disabled_tiers=("windowed", "wxla"))
+        require((ref_tier, ref_floor_tier) == ("overlap", "xla"),
+                f"reference tiers {ref_tier}, {ref_floor_tier}")
+        for a, b, what in ((ans, ref_ans, "overlap"), (ans_floor, ref_floor, "xla")):
+            require(torch.equal(torch.isnan(a), torch.isnan(b))
+                    and torch.equal(a.nan_to_num(), b.nan_to_num()),
+                    f"the two-rank fold's {what} answers differ from one process's")
+        out["reference"] = {"value_shards": MP_SHARDS, "leaves_bit_equal": len(LEAVES) - 1,
+                            "sum_max_abs_err": sum_rel, "answers_bit_equal": ["overlap", "xla"]}
+    return out
+
+
+def _mp_nccl_rank() -> dict:
+    """A world of one NCCL rank: ``make_global_mesh`` on the card and the
+    collective fold of a K1-ingested state, which must leave it bit-equal
+    (the NCCL path is wired; NCCL takes one rank a card)."""
+    import torch
+    import torch.distributed as dist
+
+    from sketches_tpu_torch import kernels
+    from sketches_tpu_torch.batched import LEAVES, BatchedDDSketch
+    from sketches_tpu_torch.parallel import make_global_mesh, psum_merge
+
+    dev = torch.device("cuda", 0)
+    mesh = make_global_mesh(("values",))
+    built = mesh.build()
+    require(built.devices.reshape(-1).tolist() == [dev], f"mesh devices {built.devices}")
+    require(built.groups == {(0,): dist.group.WORLD}, f"groups {built.groups}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    v = torch.empty((MP_STREAMS, BATCH), device=dev).log_normal_(0.0, 2.0, generator=gen)
+    kernels.reset_launch_counts()
+    b = BatchedDDSketch(MP_STREAMS, relative_accuracy=ALPHA, n_bins=N_BINS,
+                        key_offset=MP_KEY_OFFSET, device=dev)
+    _, ingest_s = _mp_seconds(lambda: b.add(v))
+    before = b.state.map(lambda x: x.clone())
+    folded, fold_s = _mp_seconds(lambda: psum_merge(b.state, axis_name="values", mesh=mesh))
+    launches = kernels.launch_counts()
+    diff = [f for f in LEAVES if not torch.equal(getattr(folded, f), getattr(before, f))]
+    require(not diff, f"the world-of-one fold changed {diff}")
+    fold_bytes = _mp_state_bytes(folded)
+    out = {"rank": 0, "world": 1, "backend": dist.get_backend(), "device": str(dev),
+           "ingest_s": ingest_s, "fold_s": fold_s, "fold_bytes": fold_bytes,
+           "fold_GBps": fold_bytes / fold_s / 1e9, "launches": launches,
+           "state_bit_equal": True}
+    dist.destroy_process_group()
+    return out
+
+
+def mp_worker(argv) -> int:
+    """``chip_smoke.py --mp-worker BACKEND RANK WORLD RENDEZVOUS OUT``: one
+    rank of the ``multiprocess`` phase, in a fresh interpreter; its report
+    goes to OUT as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    backend, rank, world, rdv, out_path = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{rdv}", world_size=world, rank=rank)
+    t0 = time.perf_counter()
+    out = _mp_gloo_rank(rank, world) if backend == "gloo" else _mp_nccl_rank()
+    out["seconds"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(out, sort_keys=True))
+    return 0
+
+
+def _mp_run(backend: str, world: int, tmp: str) -> list:
+    """Start ``world`` worker processes of ``backend`` and wait for them ->
+    their reports; fails on a non-zero exit or past the time limit, after
+    stopping every worker."""
+    rdv = os.path.join(tmp, f"rendezvous_{backend}")
+    outs = [os.path.join(tmp, f"{backend}{r}.json") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mp-worker",
+                               backend, str(r), str(world), rdv, outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    logs, late = [], False
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(0.1, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            late = True
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0])
+    for p in procs:
+        p.wait()
+    transcript = "\n".join(f"--- {backend} rank {r} (rc {p.returncode}) ---\n{log[-4000:]}"
+                            for r, (p, log) in enumerate(zip(procs, logs)))
+    require(not late, f"multiprocess {backend}: a worker passed {MP_TIMEOUT_S} s\n{transcript}")
+    require(all(p.returncode == 0 for p in procs),
+            f"multiprocess {backend}: a worker failed\n{transcript}")
+    return [json.loads(Path(o).read_text()) for o in outs]
+
+
+def phase_multiprocess(device) -> dict:
+    """(a) Two gloo ranks on the one card, each with two value shards, the
+    hosts derived from the world size: K1 ingest, the hierarchical fold
+    (inner on the card, outer host-staged), K5 and K2 on the folded state;
+    rank 0 holds it to a single-process four-shard ``DistributedDDSketch``
+    (every leaf but ``sum`` bit-equal, ``sum`` rtol 1e-6, answers bit-equal
+    on both routes).  (b) One NCCL rank: the collective fold on a world of
+    one leaves the state bit-equal.  Workers are fresh interpreters (the
+    kernels are built already, so none compiles); their launches come back
+    in their reports."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+        gloo = _mp_run("gloo", 2, tmp)
+        nccl = _mp_run("nccl", 1, tmp)
+    total: dict = {}
+    for rep in gloo + nccl:
+        _sum_launches(total, rep["launches"])
+    for k in ("ingest_histogram", "fused_quantile", "fused_quantile_tiles_overlap"):
+        require(total.get(k, 0) > 0, f"multiprocess: {k} never launched")
+    out = {"gloo": gloo, "nccl": nccl, "launches": total,
+           "streams": MP_STREAMS, "value_shards": MP_SHARDS, "batch": BATCH,
+           "seconds": time.perf_counter() - t_phase,
+           "note": "gloo takes CUDA tensors and stages them through the host; NCCL takes one"
+                   " rank a card"}
+    emit("multiprocess", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The chaos harness and the examples (ROADMAP A11)
 # ---------------------------------------------------------------------------
 
@@ -3517,6 +3747,10 @@ def phase_examples(device) -> dict:
 def main(argv=None) -> int:
     import argparse
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--mp-worker"]:
+        return mp_worker(argv[1:])
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", type=Path, action="append", default=[], metavar="DIR",
                     help="another tree holding sketches_tpu_torch/csrc (e.g. a git archive of"
@@ -3609,6 +3843,8 @@ def main(argv=None) -> int:
     fab = phase_fabric(device)
     require_ledger("fabric")
     torch.cuda.empty_cache()
+    mp = phase_multiprocess(device)
+    require_ledger("multiprocess")
     # Last: the campaigns and the examples arm integrity and faults globally.
     chaos_out = phase_chaos(device)
     examples_out = phase_examples(device)
@@ -3616,7 +3852,7 @@ def main(argv=None) -> int:
     def launched(name):
         return sum(path["launches"].get(name, 0)
                    for path in (pos, mixed, dist, wire, ckpt, backends, robust, obs, win,
-                                serving, fab, chaos_out, examples_out))
+                                serving, fab, mp, chaos_out, examples_out))
 
     src = "sketches_tpu_torch/csrc/"
     rows = [

@@ -72,6 +72,12 @@ from sketches_tpu_torch.mapping import (
     mapping_from_name,
 )
 from sketches_tpu_torch.parallel import DistributedDDSketch, SketchMesh
+from sketches_tpu_torch.store import (
+    CollapsingHighestDenseStore,
+    CollapsingLowestDenseStore,
+    DenseStore,
+    Store,
+)
 from sketches_tpu_torch import serve, windows
 from sketches_tpu_torch.windows import WindowConfig, WindowedSketch
 from sketches_tpu_torch import fabric
@@ -88,12 +94,16 @@ from sketches_tpu_torch.resilience import (
     ReplicaStale,
     ServeOverload,
     ShardLossError,
+    ShardLossReport,
     SketchError,
     SketchValueError,
     SpecError,
     UnequalSketchParametersError,
     WireDecodeError,
 )
+
+# The version of the JAX package this port tracks.
+__version__ = "0.19.0"
 
 __all__ = [
     "BaseDDSketch",
@@ -114,12 +124,17 @@ __all__ = [
     "QuadraticallyInterpolatedMapping",
     "CubicallyInterpolatedMapping",
     "mapping_from_name",
+    "Store",
+    "DenseStore",
+    "CollapsingLowestDenseStore",
+    "CollapsingHighestDenseStore",
     "SketchError",
     "SketchValueError",
     "SpecError",
     "UnequalSketchParametersError",
     "EngineUnavailable",
     "ShardLossError",
+    "ShardLossReport",
     "WireDecodeError",
     "BlobTooLarge",
     "CheckpointCorrupt",
@@ -153,4 +168,5 @@ __all__ = [
     "fabric",
     "FabricConfig",
     "ServeFabric",
+    "__version__",
 ]

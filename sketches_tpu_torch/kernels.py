@@ -55,6 +55,7 @@ __all__ = [
     "INGEST_VARIANTS",
     "ingest_variant_supported",
     "packed_ingest_enabled",
+    "INGEST_PACKED_ENV",
     "choose_ingest_engine",
     "ingest_histogram",
     "ingest_histogram_plain",
@@ -90,6 +91,9 @@ _BS = 128  # value quantum of a batch
 #: on Hopper one kernel serves all four.  Kept so variant names validate
 #: exactly as there.
 INGEST_VARIANTS = ("stock", "packed", "hifold", "cmpfree")
+
+#: The packed-ingest kill switch's environment name.
+INGEST_PACKED_ENV = registry.INGEST_PACKED.name
 
 
 def ingest_variant_supported(spec: SketchSpec, variant: str, weighted: bool) -> bool:

@@ -3,9 +3,9 @@
 
 The JAX package drives every device of a mesh from one process (jit plus
 ``shard_map``); the port does the same, eagerly.  A :class:`SketchMesh` is
-a grid of ``torch.device`` s, ``[stream shards, value shards]``, and each
-(stream shard, value shard) cell of a :class:`DistributedDDSketch` owns
-one ``SketchState`` on its device:
+a grid of ``torch.device`` s, ``[stream shards, value shards]``, each cell
+owned by a process rank, and each (stream shard, value shard) cell of a
+:class:`DistributedDDSketch` owns one ``SketchState`` on its device:
 
 * **Stream parallelism**: stream shard ``s`` holds a contiguous block of
   rows; nothing crosses shards.
@@ -20,6 +20,16 @@ A device may appear more than once in a grid: the tests run meshes of
 ``["cpu"] * 8``, and two value shards can share one card.  Without an
 explicit device list a mesh takes every CUDA device and raises
 ``SpecError`` where there is none.
+
+Several processes join one mesh over ``torch.distributed`` (the
+counterpart of ``jax.distributed.initialize`` + ``make_global_mesh``):
+each calls ``torch.distributed.init_process_group(...)``, then
+:func:`make_global_mesh`, whose cells are every rank's devices, rank-major.
+``SketchMesh.build()`` materializes such a mesh with one process group per
+line of each axis, and :func:`psum_merge` given ``axis_name=`` and
+``mesh=`` folds each process's partials with one ``all_reduce`` a leaf
+over the processes.  One NCCL rank needs a card of its own; several ranks
+on one card use gloo.
 
 Robustness follows the JAX package: a failing query tier demotes the
 facade down the ladder (``resilience.QUERY_LADDER``, recorded as a
@@ -46,10 +56,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sketches_tpu_torch import accuracy, faults, integrity, kernels, profiling, resilience, telemetry, tracing
 from sketches_tpu_torch.analysis import registry
@@ -78,6 +90,7 @@ from sketches_tpu_torch.resilience import (
 
 __all__ = [
     "default_mesh",
+    "make_global_mesh",
     "make_hierarchical_mesh",
     "SketchMesh",
     "shard_streams",
@@ -108,6 +121,13 @@ def _cuda_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def _own_rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 class SketchMesh:
     """Rebuildable mesh: a device grid plus the layout policy behind it.
 
@@ -115,9 +135,15 @@ class SketchMesh:
     ``(outer, inner)`` pair for the hierarchical fold; ``stream_shards``
     stream shards need a ``stream_axis``.  ``n_hosts`` groups the value
     shards into contiguous groups (the outer level of a hierarchical fold);
-    one process drives the whole mesh, so it defaults to 1.  ``devices``
-    (any ``torch.device`` specs, repeats allowed) defaults to every CUDA
-    device; the first ``n_devices`` of it form the grid, stream-major.
+    it defaults to the number of processes owning the mesh's cells when
+    that divides the value shards, and to 1 otherwise (the JAX package's
+    rule), so a mesh of one process has one host.  ``devices`` (any
+    ``torch.device`` specs, repeats allowed) defaults to every CUDA device;
+    the first ``n_devices`` of it form the grid, stream-major.  ``ranks``
+    gives the process rank owning each entry of ``devices`` (the JAX
+    package reads it off each device's ``process_index``; a
+    ``torch.device`` carries none): :func:`make_global_mesh` fills it, and
+    it defaults to this process's rank for every entry.
     Raises ``SpecError`` for impossible layouts, as the JAX package does.
     """
 
@@ -130,8 +156,12 @@ class SketchMesh:
         stream_shards: int = 1,
         n_hosts: Optional[int] = None,
         devices=None,
+        ranks=None,
     ):
         pool = _cuda_devices() if devices is None else [torch.device(d) for d in devices]
+        pool_ranks = [_own_rank()] * len(pool) if ranks is None else [int(r) for r in ranks]
+        if len(pool_ranks) != len(pool):
+            raise SpecError(f"{len(pool_ranks)} ranks for {len(pool)} devices")
         if n_devices is None:
             n_devices = len(pool)
         if not 1 <= n_devices <= len(pool):
@@ -151,7 +181,10 @@ class SketchMesh:
         if n_devices % max(stream_shards, 1):
             raise SpecError(f"{n_devices} devices do not divide into {stream_shards} stream shards")
         self._pool = tuple(pool)
+        self._pool_ranks = tuple(pool_ranks)
         self.devices = tuple(pool[:n_devices])
+        self.ranks = tuple(pool_ranks[:n_devices])
+        self._built: Optional[Mesh] = None
         self.value_axis = vaxes[0] if len(vaxes) == 1 else (tuple(vaxes) if vaxes else None)
         self.stream_axis = stream_axis
         self.stream_shards = int(stream_shards)
@@ -164,7 +197,8 @@ class SketchMesh:
                 f" {n_devices} devices for {stream_shards} shards"
             )
         if n_hosts is None:
-            n_hosts = 1
+            procs = len(set(self.ranks))
+            n_hosts = procs if vaxes and n_value % procs == 0 else 1
         if not vaxes and n_hosts != 1:
             raise SpecError("host grouping applies to value shards; a stream-only mesh has n_hosts=1")
         if n_value % max(n_hosts, 1):
@@ -182,11 +216,45 @@ class SketchMesh:
         v = self.n_value_shards
         return [list(self.devices[s * v : (s + 1) * v]) for s in range(self.stream_shards)]
 
+    def build(self) -> "Mesh":
+        """Materialize the mesh (:class:`Mesh`): axis names in the JAX
+        package's order (the stream axis, then the value axis or axes,
+        hosts outermost for a hierarchical pair), each cell's device and
+        owning rank.  Inside a process group it also holds the process
+        group of every axis line that crosses processes, made here with
+        plain ``dist.new_group`` calls: every rank must build its meshes
+        in the same order.  Cached, so a second call makes no group.
+        Raises ``SpecError`` when the cells are not split among ranks in
+        equal row-major blocks that hold whole lines of the innermost axis
+        or an equal part of one (the layout :func:`make_global_mesh` lays
+        out)."""
+        if self._built is None:
+            axes: list = []
+            shape: list = []
+            if self.stream_axis is not None:
+                axes.append(self.stream_axis)
+                shape.append(self.stream_shards)
+            vaxes = _value_axes(self.value_axis)
+            if len(vaxes) == 2:
+                axes += list(vaxes)
+                shape += [self.n_hosts, self.n_value_shards // self.n_hosts]
+            elif vaxes:
+                axes.append(vaxes[0])
+                shape.append(self.n_value_shards)
+            devices = np.empty(len(self.devices), dtype=object)
+            devices[:] = self.devices
+            ranks = np.asarray(self.ranks, dtype=np.int64).reshape(shape)
+            _check_rank_blocks(ranks)
+            self._built = Mesh(
+                tuple(axes), devices.reshape(shape), ranks, _line_groups(ranks)
+            )
+        return self._built
+
     def resized(self, n_devices: int, devices=None) -> "SketchMesh":
         """The same layout policy at another device count, drawn from
-        ``devices`` (default: the pool this mesh was built from).  Host
-        grouping is kept where it still divides the value shards and
-        collapses to one host otherwise."""
+        ``devices`` (default: the pool this mesh was built from, with its
+        ranks).  Host grouping is kept where it still divides the value
+        shards and collapses to one host otherwise."""
         n_value = n_devices // max(self.stream_shards, 1)
         n_hosts = (
             self.n_hosts
@@ -200,6 +268,7 @@ class SketchMesh:
             stream_shards=self.stream_shards,
             n_hosts=n_hosts,
             devices=self._pool if devices is None else devices,
+            ranks=self._pool_ranks if devices is None else None,
         )
 
     def __repr__(self) -> str:
@@ -212,12 +281,92 @@ class SketchMesh:
         )
 
 
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """A materialized :class:`SketchMesh` (``SketchMesh.build()``), the
+    counterpart of ``jax.sharding.Mesh``.  ``devices`` and ``ranks`` are
+    arrays of the grid's shape: each cell's ``torch.device`` and the rank
+    of the process that owns it.  ``groups`` maps the sorted ranks of an
+    axis line to the process group its collective runs on: the default
+    group for a line of every rank, ``None`` for a line inside one process
+    of a larger job (no collective), a ``dist.new_group`` otherwise; it is
+    empty outside a process group."""
+
+    axis_names: tuple
+    devices: np.ndarray
+    ranks: np.ndarray
+    groups: dict
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def line(self, axis: str, rank: int) -> tuple:
+        """The sorted ranks along ``axis`` through ``rank``'s first cell."""
+        return _line(self.ranks, self.axis_names.index(axis), rank)
+
+
+def _line(ranks: np.ndarray, axis: int, rank: int) -> tuple:
+    """The sorted ranks along axis ``axis`` of a rank grid through
+    ``rank``'s first cell (row-major)."""
+    cell = list(np.argwhere(ranks == rank)[0])
+    cell[axis] = slice(None)
+    return tuple(sorted(set(ranks[tuple(cell)].tolist())))
+
+
+def _check_rank_blocks(ranks: np.ndarray) -> None:
+    """Every rank's cells form one contiguous row-major block, all blocks
+    of one size, each holding whole lines of the innermost axis or an
+    equal part of one: the layout under which the line-by-line fold of
+    :func:`psum_merge` counts every cell once."""
+    flat = ranks.reshape(-1)
+    owners = list(dict.fromkeys(flat.tolist()))
+    k = flat.size // len(owners)
+    inner = ranks.shape[-1]
+    blocks = [flat[i * k : (i + 1) * k] for i in range(len(owners))]
+    if (
+        k * len(owners) != flat.size
+        or any((b != r).any() for b, r in zip(blocks, owners))
+        or (k % inner and inner % k)
+    ):
+        raise SpecError(
+            f"the mesh's cells are not split among ranks {owners} in equal"
+            f" row-major blocks of whole or equal parts of {inner}-cell lines:"
+            f" {ranks.tolist()}"
+        )
+
+
+def _line_groups(ranks: np.ndarray) -> dict:
+    """One process group per distinct axis line that needs a collective,
+    created in one sorted order on every rank (``dist.new_group`` must be
+    called by every rank alike, members or not)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return {}
+    world = dist.get_world_size()
+    if ranks.max() >= world:
+        raise SpecError(f"the mesh names ranks up to {int(ranks.max())} in a world of {world}")
+    lines = {_line(ranks, a, r) for r in np.unique(ranks).tolist() for a in range(ranks.ndim)}
+    groups = {}
+    for line in sorted(lines):
+        if line == tuple(range(world)):
+            groups[line] = dist.group.WORLD
+        elif len(line) == 1:
+            groups[line] = None
+        else:
+            groups[line] = dist.new_group(ranks=list(line))
+    return groups
+
+
 def default_mesh(
     axis_names: Sequence[str] = ("streams",), shape: Optional[Sequence[int]] = None, devices=None
 ) -> SketchMesh:
     """A mesh over ``devices`` (default every CUDA device): the first axis
     shards streams, a second one (if named) values; 1-D over all devices
     by default."""
+    return _grid_mesh(axis_names, shape, devices, None)
+
+
+def _grid_mesh(axis_names, shape, devices, ranks) -> SketchMesh:
     pool = _cuda_devices() if devices is None else list(devices)
     if not 1 <= len(axis_names) <= 2:
         raise SpecError(f"default_mesh takes one or two axis names; got {tuple(axis_names)}")
@@ -231,7 +380,53 @@ def default_mesh(
         stream_axis=axis_names[0],
         stream_shards=int(shape[0]),
         devices=pool,
+        ranks=ranks,
     )
+
+
+def _rank_cuda_device(rank: int) -> torch.device:
+    """A rank's default device: ``cuda:{local rank % device count}``, the
+    local rank being ``LOCAL_RANK`` (set by ``torchrun``) or the rank."""
+    if not torch.cuda.is_available():
+        raise SpecError(
+            f"rank {rank} has no CUDA device for make_global_mesh's default;"
+            " pass devices=['cpu', ...] to join the mesh with CPU cells"
+        )
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def make_global_mesh(
+    axis_names: Sequence[str] = ("streams",),
+    shape: Optional[Sequence[int]] = None,
+    devices=None,
+) -> SketchMesh:
+    """Mesh over every rank of the default process group.
+
+    The counterpart of ``jax.distributed.initialize()`` followed by the
+    JAX package's ``make_global_mesh``: call
+    ``torch.distributed.init_process_group(...)`` first on each process
+    (this never starts one), then this, on every rank (it gathers each
+    rank's devices, a collective).  ``devices`` are this rank's local
+    cells, by default its CUDA device ``cuda:{local_rank %
+    device_count}``; the mesh's cells are every rank's, rank-major (JAX
+    sorts by ``(process_index, id)``), laid out as :func:`default_mesh`
+    lays them.  NCCL takes one rank a card; several ranks on one card use
+    gloo.  Raises ``SpecError`` without a process group, or where a rank
+    has no CUDA device and passes none.
+    """
+    if not (dist.is_available() and dist.is_initialized()):
+        raise SpecError(
+            "make_global_mesh needs the default process group: call"
+            " torch.distributed.init_process_group(...) on every process first"
+        )
+    rank, world = dist.get_rank(), dist.get_world_size()
+    local = [_rank_cuda_device(rank)] if devices is None else [torch.device(d) for d in devices]
+    every: list = [None] * world
+    dist.all_gather_object(every, [str(d) for d in local])
+    pool = [torch.device(d) for r in range(world) for d in every[r]]
+    ranks = [r for r in range(world) for _ in every[r]]
+    return _grid_mesh(axis_names, shape, pool, ranks)
 
 
 def make_hierarchical_mesh(
@@ -240,16 +435,20 @@ def make_hierarchical_mesh(
     stream_axis: Optional[str] = None,
     stream_shards: int = 1,
     devices=None,
+    ranks=None,
 ) -> SketchMesh:
     """A two-level value mesh: ``psum_merge`` folds each host's contiguous
     group of value shards first (the inner axis), then the host partials
-    (the outer axis).  Raises ``SpecError`` on indivisible layouts."""
+    (the outer axis).  Over a global mesh's cells (``devices=g.devices,
+    ranks=g.ranks`` of a :func:`make_global_mesh`) the hosts default to the
+    processes.  Raises ``SpecError`` on indivisible layouts."""
     return SketchMesh(
         value_axis=tuple(value_axes),
         stream_axis=stream_axis,
         stream_shards=stream_shards,
         n_hosts=n_hosts,
         devices=devices,
+        ranks=ranks,
     )
 
 
@@ -295,7 +494,20 @@ def _fold_pair(a: SketchState, b: SketchState) -> SketchState:
     )
 
 
-def psum_merge(partials: Sequence[SketchState], n_hosts: int = 1, device=None) -> SketchState:
+#: How the collective fold reduces each leaf across processes: masses add,
+#: extrema and occupied bounds take min / max, and window offsets max (the
+#: identity where they agree), leaf for leaf as ``_fold_pair``.
+_LEAF_REDUCE = {
+    "bins_pos": "SUM", "bins_neg": "SUM", "zero_count": "SUM", "count": "SUM",
+    "sum": "SUM", "min": "MIN", "max": "MAX", "collapsed_low": "SUM",
+    "collapsed_high": "SUM", "key_offset": "MAX", "pos_lo": "MIN", "pos_hi": "MAX",
+    "neg_lo": "MIN", "neg_hi": "MAX", "neg_total": "SUM", "tile_sums": "SUM",
+}
+
+
+def psum_merge(
+    partials, n_hosts: int = 1, device=None, *, axis_name=None, mesh=None
+) -> SketchState:
     """Fold the value shards' partials of one stream shard onto ``device``
     (default: the first partial's).
 
@@ -303,7 +515,26 @@ def psum_merge(partials: Sequence[SketchState], n_hosts: int = 1, device=None) -
     over an ``(outer, inner)`` axis pair: each host's contiguous group of
     partials folds first, then the host partials.  Every operand is
     copied to ``device`` explicitly.
+
+    Collective form (``axis_name`` and ``mesh`` given; the JAX package's
+    ``psum_merge(state, axis_name)`` inside ``shard_map``): ``partials``
+    are this process's cells of ``mesh`` (a :class:`SketchMesh`, built on
+    first use, or its :class:`Mesh`), in grid order -- a bare
+    ``SketchState`` when it owns one -- and ``axis_name`` one axis or an
+    ``(outer, inner)`` pair.  The fold goes innermost first: the process's
+    own partials through the list fold above, then for each axis one
+    ``dist.all_reduce`` a leaf over the ranks on that axis's line (SUM for
+    the masses, MIN / MAX for extrema and bounds), on the backend the
+    caller's process group runs.  Every process on a line must call it
+    alike.  Window offsets fold with MAX, the identity when every process
+    shares the window; processes whose windows differ go through
+    :func:`fold_hosts`, which aligns them first.  Returns the fold of every
+    cell on those axes, on each process.  Raises ``SpecError`` when this
+    process's cells do not match ``partials`` or span more than one
+    position of an axis it does not fold.
     """
+    if axis_name is not None or mesh is not None:
+        return _psum_merge_collective(partials, axis_name, mesh, device)
     if not partials:
         raise SketchValueError("psum_merge needs at least one partial")
     dev = partials[0].device if device is None else torch.device(device)
@@ -320,6 +551,57 @@ def psum_merge(partials: Sequence[SketchState], n_hosts: int = 1, device=None) -
 
     hosts = [fold(partials[h * per : (h + 1) * per]) for h in range(k // per)]
     return fold(hosts)
+
+
+def _psum_merge_collective(partials, axis_name, mesh, device) -> SketchState:
+    if axis_name is None or mesh is None:
+        raise SpecError("the collective psum_merge needs both axis_name= and mesh=")
+    built = mesh.build() if isinstance(mesh, SketchMesh) else mesh
+    axes = _value_axes(axis_name)
+    missing = [a for a in axes if a not in built.axis_names]
+    if not axes or missing:
+        raise SpecError(f"mesh axes {built.axis_names} lack {missing or axis_name!r}")
+    rank = _own_rank()
+    cells = np.argwhere(built.ranks == rank)
+    if isinstance(partials, SketchState):
+        partials = [partials]
+    if not len(cells) or len(partials) != len(cells):
+        raise SpecError(
+            f"rank {rank} owns {len(cells)} cells of the mesh but passed"
+            f" {len(partials)} partials"
+        )
+    kept = [i for i, a in enumerate(built.axis_names) if a not in axes]
+    if len({tuple(c[kept]) for c in cells}) > 1:
+        raise SpecError(
+            f"rank {rank}'s cells span more than one position of the axes it"
+            f" does not fold ({[built.axis_names[i] for i in kept]})"
+        )
+    # This process's cells by their coordinates on the folded axes.
+    fold_idx = [built.axis_names.index(a) for a in axes]
+    held = {tuple(int(c[i]) for i in fold_idx): st for c, st in zip(cells, partials)}
+    for j in reversed(range(len(axes))):
+        # The cells of each line along this axis that this process holds
+        # fold here, in grid order (the list fold), ...
+        lines: dict = {}
+        for key in sorted(held):
+            lines.setdefault(key[:j] + (0,) + key[j + 1 :], []).append(held[key])
+        held = {k: v[0] if len(v) == 1 else psum_merge(v, device=device) for k, v in lines.items()}
+        # ... then across the processes on the line, one all_reduce a leaf.
+        group = built.groups.get(built.line(axes[j], rank))
+        if group is None:
+            continue  # the line lies inside this process
+        for k in sorted(held):
+            if any(held[k] is p for p in partials):
+                held[k] = held[k].map(torch.clone)  # all_reduce works in place
+            for f in LEAVES:
+                # gloo takes CUDA tensors and stages them through the host.
+                dist.all_reduce(
+                    getattr(held[k], f), op=getattr(dist.ReduceOp, _LEAF_REDUCE[f]), group=group
+                )
+    (out,) = held.values()
+    if any(out is p for p in partials):
+        out = out.map(torch.clone)
+    return out if device is None else out.map(lambda x: x.to(device))
 
 
 def fold_live_partials(spec: SketchSpec, partials: SketchState, live) -> SketchState:

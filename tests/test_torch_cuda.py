@@ -20,10 +20,12 @@ same bucket; the decode's exp may differ by an ulp).
 import numpy as np
 import pytest
 import torch
+from hypothesis import given
 
 from sketches_tpu_torch import batched, convert, kernels, resilience
 from sketches_tpu_torch.resilience import SketchValueError, SpecError
 from torch_edge_rows import EDGE_QS, edge_leaves
+from torch_property_common import SEEDS, WINDOW_STREAMS, finite_f32, padded_block, steady, with_mid
 
 MAPPINGS = (
     "logarithmic",
@@ -1037,6 +1039,62 @@ def test_kernel_error_inside_serve_flush_raises(dev, monkeypatch):
     with pytest.raises(EngineUnavailable, match="launch failed"):
         srv.query("a", [0.9])
     assert srv.stats()["hedges"] == 0 and srv.tenant("a")._query_disabled == set()
+
+
+# ---------------------------------------------------------------------------
+# The property suites' draws on the card: K1-K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _same(a, b) -> bool:
+    """Bit for bit, NaN positions included."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        a.nan_to_num().view(torch.int32), b.nan_to_num().view(torch.int32))
+
+
+@steady(60)
+@given(with_mid(WINDOW_STREAMS), SEEDS)
+def test_kernels_equal_plain_on_drawn_streams(dev, pair, seed):
+    """The draws of ``tests/test_torch_property.py`` (raw and moved to
+    mid-bucket), each one stream of a 128-stream block on a drifted or
+    centred window: K1 against ``ingest_histogram_plain`` (unit weights bit
+    for bit, zero-weight padding to rtol 1e-5), then K2-K5 on the ingested
+    state against their plain versions bit for bit, and K5 equal to K4."""
+    for values in pair:
+        vals32 = finite_f32(values)
+        if len(vals32) == 0:
+            continue
+        spec = batched.SketchSpec(0.02, n_bins=512)
+        padded, w = padded_block(vals32)
+        v, w = torch.from_numpy(padded).to(dev), torch.from_numpy(w).to(dev)
+        st = batched.init(spec, 128, dev)
+        st = batched.recenter(spec, st, batched.auto_offset(spec, st, v, w))
+        rng = np.random.RandomState(seed)
+        st = batched.recenter(spec, st, st.key_offset + int(rng.randint(-200, 200)))
+        _ingest_matches_plain(spec, v, st.key_offset, False)
+        _ingest_matches_plain(spec, v, st.key_offset, True, w)
+        st = kernels.add(spec, st, v, w)
+        qs = torch.tensor([0.0, 0.25, 0.5, 0.9, 1.0], device=dev)
+        assert _same(kernels.fused_quantile(spec, st, qs), kernels.fused_quantile_plain(spec, st, qs))
+        lo_w, n_w, w_t, with_neg = kernels.plan_state_window(spec, st)
+        got = kernels.fused_quantile_windowed(spec, st, qs, lo_w, n_wblocks=n_w, w_tiles=w_t,
+                                              with_neg=with_neg)
+        ref = kernels.fused_quantile_windowed_plain(
+            spec, st, kernels._windowed_packed(st, qs), lo_w * w_t * 128, n_w * w_t, with_neg,
+            qs.numel())
+        assert _same(got, torch.where(kernels._valid(st, qs), ref, float("nan")))
+        k_tiles, with_neg = kernels.plan_tile_query(spec, st, qs)
+        tiles = kernels.fused_quantile_tiles(spec, st, qs, k_tiles=k_tiles, with_neg=with_neg)
+        packed = kernels._tiles_packed(spec, st, qs)
+        assert _same(tiles, kernels.fused_quantile_tiles_plain(spec, st, packed, with_neg,
+                                                               qs.numel()))
+        over = kernels.fused_quantile_tiles_overlap(spec, st, qs, k_tiles=k_tiles,
+                                                    with_neg=with_neg)
+        bn = kernels._stream_block(128)
+        lists_pos, lists_neg, packed = kernels._tile_query_operands(spec, st, qs, bn, k_tiles)
+        assert _same(over, kernels.fused_quantile_tiles_overlap_plain(
+            spec, st, lists_pos, lists_neg, packed, bn, with_neg, qs.numel()))
+        assert _same(over, tiles)
 
 
 def test_unarmed_kernel_tests_recorded_no_downgrade(dev):
