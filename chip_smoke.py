@@ -20,6 +20,14 @@ plain PyTorch version on the card, then drives three paths at full size:
   ``disabled_tiers=("windowed", "wxla")`` the floor ``xla`` answers through
   one ``fused_quantile`` launch.
 
+Right after the build, the ``analysis`` phase (``phase_analysis``) runs the
+port's static analyzer in this process, both layers: the AST lint over
+the tree and the census of the five built libraries (``cuobjdump``
+registers, shared memory, spills, SASS, f64 and FFMA counts of every
+kernel entry), which must equal the pinned ``analysis/budgets.json``
+with no f64 instruction; a copy of the budgets with one pin cut must
+fail the gate.  It launches no kernel.
+
 ``fused_quantile`` is also checked and timed on a 2048-bin state (262,144
 streams, one mixed-sign batch through the facade: the same bytes as the
 1M x 512 state).
@@ -79,7 +87,7 @@ two causal events; the quick start's audits (real K5 queries) find no
 violation and a 128-bin facade fed lognormal(0, 6) rows reports collapse
 drift.  Disarmed again, facade ``add`` and the ``overlap`` query must come
 within 3% of the same run's numbers from before anything was armed (each
-side the least of three CUDA-event medians: ``settled_ms``).
+side the least single call of three CUDA-event runs of 21: ``settled_ms``).
 
 Then the time-window, serving and fabric phases (``phase_windows``,
 ``phase_serve``, ``phase_fabric``), at sizes set by host work
@@ -245,19 +253,21 @@ def emit(phase: str, **fields) -> None:
 # ---------------------------------------------------------------------------
 
 
-def event_ms(fn, *, warmup: int = 3, reps: int = 11, inner: int = 1) -> float:
+def event_ms(fn, *, warmup: int = 3, reps: int = 11, inner: int = 1,
+             times: list | None = None) -> float:
     """Median device time of ``fn()`` in ms, each run timed with CUDA events.
 
     ``inner`` > 1 times that many back-to-back calls per run and divides:
     the host enqueues the next launch while the card runs the last, so a
     kernel's time excludes the host's launch overhead.  Warm-up scales with
-    ``inner`` (the card's clocks settle over the first few milliseconds)."""
+    ``inner`` (the card's clocks settle over the first few milliseconds).
+    ``times`` gets every run's time."""
     import torch
 
     for _ in range(warmup * inner):
         fn()
     torch.cuda.synchronize()
-    times = []
+    runs = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -266,30 +276,38 @@ def event_ms(fn, *, warmup: int = 3, reps: int = 11, inner: int = 1) -> float:
             fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
+        runs.append(a.elapsed_time(b) / inner)
+    if times is not None:
+        times.extend(runs)
+    return statistics.median(runs)
 
 
-def settled_ms(fn, *, runs: int = 3, log: list | None = None, **kw) -> float:
-    """The least of ``runs`` :func:`event_ms` medians, each after a full
-    garbage collection and an idle card; ``log`` gets every median.  A
-    facade call's CUDA events also time the host's enqueue, and the
-    machine's host cores are shared: load there only ever lengthens a run,
-    while a cost of the call itself lengthens every run, so the least
-    median keeps the call's cost and drops the neighbours' (ROADMAP queue
-    C has the readings)."""
+def settled_ms(fn, *, runs: int = 3, log: dict | None = None, **kw) -> float:
+    """The least single call of ``runs`` :func:`event_ms` runs, each after a
+    full garbage collection and an idle card; ``log`` gets each run's
+    median and least call.  A facade call's CUDA events also time the
+    host's enqueue, and the machine's host cores are shared: load there
+    only ever lengthens a call, while a cost of the call itself lengthens
+    every call, so the least call keeps the call's cost and drops the
+    neighbours'.  With no load of its own on an H100 machine's host, the
+    1M x 512 facade ``add``'s run medians (21 calls) ranged 11.32-16.58 ms
+    while a run's least call was 11.22-11.30 ms in 17 of 20 runs
+    (``tools/obs_gate_noise.py``; ROADMAP queue C has the readings)."""
     import gc
 
     import torch
 
-    meds = []
+    meds, least = [], []
     for _ in range(runs):
         gc.collect()
         torch.cuda.synchronize()
-        meds.append(event_ms(fn, **kw))
+        calls: list = []
+        meds.append(event_ms(fn, times=calls, **kw))
+        least.append(min(calls))
     if log is not None:
-        log.extend(meds)
-    return min(meds)
+        log.setdefault("medians", []).extend(meds)
+        log.setdefault("least", []).extend(least)
+    return min(least)
 
 
 def c_entry(lib, name: str):
@@ -452,6 +470,72 @@ def phase_build() -> None:
     }
     emit("build", seconds=total, per_source=per_source, ptxas=resources,
          native=native_status, native_seconds=native_s)
+
+
+def phase_analysis() -> dict:
+    """The port's sketchlint over this tree, both layers, in this process
+    (``analysis.__main__.main(["--stats", "--json", ...])``): it must exit
+    0, the census of the five built libraries must equal the pinned
+    ``analysis/budgets.json`` entry for entry, and no entry may hold an f64
+    instruction.  Then the doctored-budget step: a copy of the budgets with
+    one SASS pin halved must exit 1 with a ``kernel-budget`` finding.  One
+    line a kernel entry is printed.  Launches no kernel."""
+    import contextlib
+    import io
+    import tempfile
+
+    from sketches_tpu_torch.analysis import __main__ as cli
+    from sketches_tpu_torch.analysis import kernel_audit
+
+    t0 = time.perf_counter()
+    pinned_path = ROOT / "sketches_tpu_torch" / "analysis" / "budgets.json"
+    pinned = kernel_audit.load_budgets(str(pinned_path))
+    require(pinned is not None, "analysis: analysis/budgets.json is missing")
+
+    def run(argv, json_path):
+        # The CLI's summary goes to stderr: kept with its output, so that the
+        # doctored step's expected finding is not read as this run's fault.
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            rc = cli.main([*argv, "--json", json_path])
+        with open(json_path, encoding="utf-8") as f:
+            return rc, buf.getvalue(), json.load(f)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as tmp:
+        rc, text, report = run(["--stats"], os.path.join(tmp, "report.json"))
+        require(rc == 0, f"analysis: the CLI exited {rc}: {text[-3000:]}")
+        kernel = report["kernel"]
+        entries = kernel["entries"]
+        differ = sorted(k for k in set(entries) | set(pinned["entries"])
+                        if entries.get(k) != pinned["entries"].get(k))
+        require(not differ, f"analysis: the census differs from budgets.json at {differ[:6]}:"
+                            f" {[(entries.get(k), pinned['entries'].get(k)) for k in differ[:2]]}")
+        require(all(e["f64"] == 0 for e in entries.values()),
+                "analysis: a kernel entry holds f64 instructions")
+        require(kernel["smem"]["ok"] and kernel["smem"]["quantile"]["measured"],
+                f"analysis: shared-memory report {kernel['smem']}")
+        cut = sorted(pinned["entries"])[0]
+        doctored = json.loads(json.dumps(pinned))
+        doctored["entries"][cut]["sass"] //= 2
+        doctored_path = os.path.join(tmp, "doctored.json")
+        kernel_audit.write_budgets(doctored_path, doctored)
+        drc, dout, dreport = run(["--budgets", doctored_path], os.path.join(tmp, "doctored_report.json"))
+        rules = sorted({f["rule"] for f in dreport["findings"]})
+        require(drc == 1 and rules == ["kernel-budget"],
+                f"analysis: the doctored budgets gave exit {drc} and {rules}: {dout[-2000:]}")
+    for key, e in sorted(entries.items()):
+        print(f"analysis: {key}: registers {e['registers']}, shared {e['shared']} B,"
+              f" stack {e['stack']} B, local {e['local']} B, spills {e['spill_stores']}/"
+              f"{e['spill_loads']} B, SASS {e['sass']}, f64 {e['f64']}, FFMA {e['ffma']}",
+              flush=True)
+    out = {
+        "nvcc": kernel["nvcc"], "entries": len(entries), "smem": kernel["smem"],
+        "stats": [ln for ln in text.splitlines() if ln.startswith(("stats:", "sketchlint:"))],
+        "doctored": {"cut": f"{cut} sass", "exit": drc, "rules": rules},
+        "seconds": time.perf_counter() - t0,
+    }
+    emit("analysis", **out)
+    return out
 
 
 def _edge_values(gen, n, s, device):
@@ -2435,13 +2519,13 @@ def phase_observability(device, card: dict, times: dict) -> dict:
     for _ in range(OBS_BATCHES):
         timing.add(_mixed_batch(gen, N_STREAMS, device))
     v_time = _mixed_batch(gen, N_STREAMS, device)
-    medians = {"before": {"add_ms": [], "overlap_query_ms": []},
-               "after": {"add_ms": [], "overlap_query_ms": []}}
+    runs = {"before": {"add_ms": {}, "overlap_query_ms": {}},
+            "after": {"add_ms": {}, "overlap_query_ms": {}}}
     before = {"add_ms": settled_ms(lambda: timing.add(v_time), warmup=2, reps=21,
-                                   log=medians["before"]["add_ms"])}
+                                   log=runs["before"]["add_ms"])}
     require(timing.get_quantile_values_resolved(QS)[0] == "overlap", "timing facade route")
     before["overlap_query_ms"] = settled_ms(lambda: timing.get_quantile_values(QS), reps=21,
-                                            log=medians["before"]["overlap_query_ms"])
+                                            log=runs["before"]["overlap_query_ms"])
 
     # 1. Armed: the quick start, its ladder, the distributed floor.
     sk = facade(n_bins=N_BINS, key_offset=OBS_KEY_OFFSET)
@@ -2559,14 +2643,14 @@ def phase_observability(device, card: dict, times: dict) -> dict:
     resilience.reset()
     require(not tracing.enabled(), "the flight recorder stayed armed")
     after = {"overlap_query_ms": settled_ms(lambda: timing.get_quantile_values(QS), reps=21,
-                                            log=medians["after"]["overlap_query_ms"])}
+                                            log=runs["after"]["overlap_query_ms"])}
     after["add_ms"] = settled_ms(lambda: timing.add(v_time), warmup=2, reps=21,
-                                 log=medians["after"]["add_ms"])
+                                 log=runs["after"]["add_ms"])
     cost = {k: after[k] / before[k] - 1.0 for k in before}
     for k, rel in cost.items():
         require(abs(rel) <= OBS_DISARMED_TOL,
                 f"disarmed {k}: {after[k]:.4f} ms against {before[k]:.4f} ms before arming"
-                f" (medians {medians})")
+                f" (runs {runs})")
     require(tracing.events() == [] and profiling.attribution()["measured"] == {},
             "the disarmed layers recorded")
 
@@ -2601,7 +2685,7 @@ def phase_observability(device, card: dict, times: dict) -> dict:
         "accuracy": {"quickstart": audit, "collapse_drift_reports": len(drift),
                      "max_collapsed_mass_frac": max(fracs)},
         "tracing": {"explain_events": n_events, "explain": lines},
-        "disarmed": {"before": before, "after": after, "relative": cost, "medians": medians},
+        "disarmed": {"before": before, "after": after, "relative": cost, "runs": runs},
         "launches": launches, "armed_s": armed_s,
         "seconds": time.perf_counter() - t_phase,
         "note": "armed rows: host clock across torch.cuda.synchronize (profiling.record);"
@@ -3778,6 +3862,8 @@ def main(argv=None) -> int:
     card = phase_card()
     rate = card["mem_rate_Bps"]
     phase_build()
+    phase_analysis()
+    require_ledger("analysis")
     trees = build_compare(opts.compare) if opts.compare else {}
     ingest_others = {k: t["sk_ingest"] for k, t in trees.items()}
     overlap_others = {k: t["sk_overlap"] for k, t in trees.items()}

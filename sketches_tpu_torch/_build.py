@@ -20,10 +20,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
+from sketches_tpu_torch import telemetry
 from sketches_tpu_torch.resilience import EngineUnavailable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -39,17 +39,25 @@ NVCC_FLAGS = (
 _LIBS: Dict[Tuple[Path, str], ctypes.CDLL] = {}  # by csrc directory and source
 
 
-def nvcc_path() -> str:
-    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda``'s,
-    else the first ``nvcc`` on ``PATH``."""
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``, ``cu++filt``):
+    ``$CUDA_HOME/bin/<name>``, else ``/usr/local/cuda``'s, else the first on
+    ``PATH``.  Raises ``EngineUnavailable`` when there is none."""
+    # The CUDA toolkit's own convention, not a registry switch.  sketchlint: ignore[env-read]
     home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    cand = home / "bin" / "nvcc"
+    cand = home / "bin" / name
     if cand.is_file():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise EngineUnavailable("nvcc not found: the CUDA kernels cannot be built")
+        raise EngineUnavailable(f"{name} not found: the CUDA toolkit is not installed")
     return found
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler (:func:`cuda_tool`); ``EngineUnavailable`` without
+    one, since the kernels then cannot be built."""
+    return cuda_tool("nvcc")
 
 
 def library_path(source: str, csrc: Path = CSRC) -> Path:
@@ -78,7 +86,7 @@ def build(sources: Sequence[str] = SOURCES, csrc: Path = CSRC) -> Dict[str, floa
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    t0 = time.perf_counter()
+    t0 = telemetry.clock()
     for src in todo:
         out = library_path(src, csrc)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -92,7 +100,7 @@ def build(sources: Sequence[str] = SOURCES, csrc: Path = CSRC) -> Dict[str, floa
     failed = []
     for src, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        seconds[src] = time.perf_counter() - t0
+        seconds[src] = telemetry.clock() - t0
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{src} (exit {proc.returncode}):\n{log}")

@@ -581,9 +581,8 @@ class AdaptiveDDSketch:
         for _ in range(self.spec.max_collapses + 2):
             st = self._inner.state
             frac_now_d, offs, frac_ctr_d = self._guard_stats(st.key_offset, varr, weights)
-            frac_now, frac_centered, level = (
-                x.cpu().numpy() for x in (frac_now_d.double(), frac_ctr_d.double(), self._level)
-            )
+            frac_now, frac_centered = (x.cpu().double().numpy() for x in (frac_now_d, frac_ctr_d))
+            level = self._level.cpu().numpy()
             # Empty streams judge against the window their first batch will
             # auto-centre; occupied streams against the window they have.
             relevant = np.where(has_mass, frac_now, frac_centered)

@@ -196,7 +196,10 @@ class SketchState:
 
     All leaves live on one device.  ``key_offset`` and the occupied bounds
     are int32; the bins and mass counters are in the spec's ``bin_dtype``;
-    ``sum``/``min``/``max`` in its ``dtype``.
+    ``sum``/``min``/``max`` in its ``dtype``.  ``collapsed_low`` /
+    ``collapsed_high`` count the mass collapsed into the edge bins (the
+    reference's observability counters); an empty stream's occupied
+    bounds are ``(n_bins, -1)``.
     """
 
     bins_pos: torch.Tensor  # [n_streams, n_bins]

@@ -169,9 +169,10 @@ _COL = {
     "neg_lo": 9, "neg_hi": 10, "neg_total": 11,
 }
 _TILE0 = 16  # first tile-sum column (12 scalars + 4 pad)
-# Shared memory a Hopper block may use (csrc/ingest.cu kSmemLimit): the
-# ingest kernel keeps each stream's two histograms there.
-_INGEST_SMEM_BYTES = 232448
+# Shared memory one Hopper block may opt into (kSmemLimit in csrc/ingest.cu,
+# quantile.cu and overlap.cu; analysis/kernel_audit.py holds them equal):
+# the ingest keeps a stream's two histograms there, the overlap walk its ring.
+_SMEM_BYTES = 232448
 
 
 def _ncols(n_tiles: int) -> int:
@@ -288,10 +289,10 @@ def ingest_histogram(
         raise SpecError("the ingest kernel requires 128-aligned n_bins")
     if not _on_cuda(values, "ingest_histogram"):
         return ingest_histogram_plain(spec, values, weights, key_offset, weighted=weighted)
-    if 2 * spec.n_bins * 4 > _INGEST_SMEM_BYTES:
+    if 2 * spec.n_bins * 4 > _SMEM_BYTES:
         raise SpecError(
             f"n_bins={spec.n_bins}: one stream's two histograms do not fit the"
-            f" {_INGEST_SMEM_BYTES} bytes of shared memory a block may use"
+            f" {_SMEM_BYTES} bytes of shared memory a block may use"
         )
     n, s = values.shape
     dev = values.device
@@ -1105,12 +1106,10 @@ def _count_and_decode(spec, blk, packed, with_neg, q_total):
 # K5: the tile-list walk through an asynchronous-copy ring
 # ---------------------------------------------------------------------------
 
-# Rows a CTA of the overlap kernel takes at a time, its most ring slots,
-# and the shared memory a Hopper block may use (csrc/overlap.cu kRows,
-# kMaxSlots, kSmemLimit).
+# Rows a CTA of the overlap kernel takes at a time and its most ring slots
+# (csrc/overlap.cu kRows, kMaxSlots).
 _OVERLAP_ROWS = 16
 _OVERLAP_MAX_SLOTS = 4
-_SMEM_BYTES = 232448
 
 
 def _overlap_depth(n_steps: int, requested: int) -> int:

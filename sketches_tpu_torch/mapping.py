@@ -209,7 +209,13 @@ class KeyMapping:
 
 
 class LogarithmicMapping(KeyMapping):
-    """Exact ``ln(v) / ln(gamma)`` mapping -- one log per key."""
+    """Exact ``ln(v) / ln(gamma)`` mapping -- one log per key.
+
+    Failure modes: inherits ``KeyMapping``'s ``SpecError`` on an invalid
+    ``relative_accuracy``; ``key()`` of a non-positive value is a math
+    domain error (callers pre-route those to the zero bucket / negative
+    store).
+    """
 
     kernel_id = 0
 
@@ -235,7 +241,14 @@ class LogarithmicMapping(KeyMapping):
 
 class LinearlyInterpolatedMapping(KeyMapping):
     """Linear interpolation of log2 between powers of two (no
-    transcendentals); the base multiplier stays 1/ln(gamma)."""
+    transcendentals); the base multiplier stays 1/ln(gamma).
+
+    Failure modes: inherits ``KeyMapping``'s ``SpecError`` on an invalid
+    ``relative_accuracy``.  Because this multiplier convention is
+    implementation-defined across the DDSketch family, foreign wire bytes
+    carrying a LINEAR mapping are refused by default on decode
+    (``pb.proto.KeyMappingProto.from_proto``) -- a mismatch would silently
+    misdecode every bin."""
 
     kernel_id = 1
 
@@ -268,7 +281,11 @@ class LinearlyInterpolatedMapping(KeyMapping):
 
 class QuadraticallyInterpolatedMapping(KeyMapping):
     """Quadratic interpolation of log2 on the mantissa: f(s) = s(4 - s)/3,
-    base multiplier scaled by 3/4."""
+    base multiplier scaled by 3/4.
+
+    Failure modes: inherits ``KeyMapping``'s ``SpecError`` on an invalid
+    ``relative_accuracy``; ``key()`` of a non-positive value is undefined
+    (callers pre-route those to the zero bucket / negative store)."""
 
     kernel_id = 2
 
@@ -307,7 +324,8 @@ class QuadraticallyInterpolatedMapping(KeyMapping):
         rem = v - exponent
         # The root in f64, rounded once to f32: correctly rounded, like
         # XLA's and the card's ``sqrtf``.  torch's CPU f32 ``sqrt`` is an ulp
-        # off on about 0.6% of inputs in [1, 4).
+        # off on about 0.6% of inputs in [1, 4).  The device tier's one
+        # deliberate f64 value.  sketchlint: ignore[torch-f64]
         root = torch.sqrt((4.0 - 3.0 * rem).double()).to(rem.dtype)
         s = 2.0 - root
         mantissa = (s + 1.0) / 2.0
@@ -317,7 +335,11 @@ class QuadraticallyInterpolatedMapping(KeyMapping):
 class CubicallyInterpolatedMapping(KeyMapping):
     """Cubic interpolation of log2 on the mantissa, f(s) = ((A s + B) s + C) s;
     base multiplier scaled by 7/10.  The inverse is a degree-10 polynomial
-    fit evaluated in Horner order (the JAX package's ``_INV_POLY``)."""
+    fit evaluated in Horner order (the JAX package's ``_INV_POLY``).
+
+    Failure modes: inherits ``KeyMapping``'s ``SpecError`` on an invalid
+    ``relative_accuracy``; ``key()`` of a non-positive value is undefined
+    (callers pre-route those to the zero bucket / negative store)."""
 
     kernel_id = 3
     A = 6.0 / 35.0
@@ -387,7 +409,9 @@ _MAPPING_REGISTRY = {
 
 
 def mapping_from_name(name: str, relative_accuracy: float, offset: float = 0.0) -> KeyMapping:
-    """Instantiate a mapping by registry name."""
+    """Instantiate a mapping by registry name.  Raises ``SpecError`` for
+    an unknown name (the message lists the known ones) or an invalid
+    ``relative_accuracy``."""
     try:
         cls = _MAPPING_REGISTRY[name]
     except KeyError:

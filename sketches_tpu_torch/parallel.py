@@ -392,6 +392,7 @@ def _rank_cuda_device(rank: int) -> torch.device:
             f"rank {rank} has no CUDA device for make_global_mesh's default;"
             " pass devices=['cpu', ...] to join the mesh with CPU cells"
         )
+    # torchrun's convention, not a switch of the registry.  sketchlint: ignore[env-read]
     local = int(os.environ.get("LOCAL_RANK", rank))
     return torch.device("cuda", local % torch.cuda.device_count())
 

@@ -78,7 +78,8 @@ class SketchError(Exception):
 
 class SketchValueError(SketchError, ValueError):
     """A caller handed the library an unusable value (bad weight, ragged
-    batch width).  Subclasses ``ValueError``."""
+    batch width, refused wire bytes).  Subclasses ``ValueError`` so
+    pre-taxonomy ``except ValueError`` call sites keep working."""
 
 
 class SpecError(SketchValueError):
@@ -147,7 +148,9 @@ class ServeOverload(SketchError):
 
 class DeadlineExceeded(SketchError):
     """A serving request's deadline budget was spent before any dispatch
-    could answer it (serving tier)."""
+    could answer it (serving tier).  Raised at admission/flush time -- a
+    request near (but not past) its deadline degrades to the cheapest
+    engine tier instead of raising."""
 
 
 class ReplicaStale(SketchError):
@@ -163,8 +166,11 @@ class ReplicaStale(SketchError):
 
 
 class FabricUnavailable(SketchError):
-    """No serveable copy of a fabric tenant remains: unavailability is
-    declared, never improvised around."""
+    """No serveable copy of a fabric tenant remains: the primary host is
+    dead or partitioned and every replica either refused
+    (:class:`ReplicaStale`) or lives on a dead/partitioned host.  Raised
+    instead of serving a wrong or out-of-contract answer -- unavailability
+    is declared, never improvised around."""
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +340,9 @@ class ShardLossReport:
 
     The folded state is an exact sketch of the surviving shards' mass (each
     partial is itself a sketch); ``dropped_count`` is the per-stream mass
-    left behind with the dead shards.
+    left behind with the dead shards, derivable only while the dead
+    partials are still readable (simulation, post-mortem), and None where
+    it cannot be known.
     """
 
     live: np.ndarray  # [K] bool

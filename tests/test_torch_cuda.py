@@ -17,6 +17,9 @@ bit-identical to itself (no atomics); the ``sum`` column to
 same bucket; the decode's exp may differ by an ulp).
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1095,6 +1098,71 @@ def test_kernels_equal_plain_on_drawn_streams(dev, pair, seed):
         assert _same(over, kernels.fused_quantile_tiles_overlap_plain(
             spec, st, lists_pos, lists_neg, packed, bn, with_neg, qs.numel()))
         assert _same(over, tiles)
+
+
+# ---------------------------------------------------------------------------
+# The kernel census (analysis/kernel_audit.py) on what nvcc built here
+# ---------------------------------------------------------------------------
+
+_BUDGETS = Path(__file__).resolve().parent.parent / "sketches_tpu_torch" / "analysis" / "budgets.json"
+
+
+@pytest.fixture(scope="module")
+def census_doc():
+    """One measurement of the census a module run (the five libraries are
+    built first where missing)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and toolkit: the census reads the built kernels")
+    from sketches_tpu_torch.analysis import kernel_audit
+
+    return kernel_audit.measure_budgets()
+
+
+def test_live_census_equals_the_pinned_budgets(census_doc):
+    from sketches_tpu_torch.analysis import kernel_audit
+
+    pinned = kernel_audit.load_budgets(str(_BUDGETS))
+    assert census_doc["entries"] == pinned["entries"]
+    assert census_doc["smem_bytes"] == pinned["smem_bytes"]
+    assert kernel_audit.check_budgets(pinned, census_doc) == []
+
+
+def test_census_update_then_gate_round_trip(census_doc, tmp_path):
+    from sketches_tpu_torch.analysis import kernel_audit
+    from sketches_tpu_torch.analysis.__main__ import main
+
+    path = tmp_path / "budgets.json"
+    assert main(["--update-budgets", "--budgets", str(path)]) == 0
+    assert kernel_audit.load_budgets(str(path))["entries"] == census_doc["entries"]
+    report = tmp_path / "report.json"
+    assert main(["--budgets", str(path), "--json", str(report)]) == 0
+    data = json.loads(report.read_text())
+    assert data["layers"] == {"lint": True, "kernel": True}
+    assert data["kernel"]["budgets"]["checked"] and data["kernel"]["budgets"]["ok"]
+
+
+def test_doctored_pin_fails_the_gate(census_doc, tmp_path):
+    from sketches_tpu_torch.analysis import kernel_audit
+    from sketches_tpu_torch.analysis.__main__ import main
+
+    doctored = json.loads(json.dumps(census_doc))
+    cut = sorted(doctored["entries"])[0]
+    doctored["entries"][cut]["sass"] //= 2
+    found = kernel_audit.check_budgets(doctored, census_doc)
+    assert [f.rule for f in found] == ["kernel-budget"] and cut in found[0].message
+    path = tmp_path / "doctored.json"
+    kernel_audit.write_budgets(str(path), doctored)
+    report = tmp_path / "report.json"
+    assert main(["--budgets", str(path), "--json", str(report)]) == 1
+    assert {f["rule"] for f in json.loads(report.read_text())["findings"]} == {"kernel-budget"}
+
+
+def test_no_kernel_entry_holds_an_f64_instruction(census_doc):
+    from sketches_tpu_torch import _build
+
+    entries = census_doc["entries"]
+    assert {k.split(":", 1)[0] for k in entries} == set(_build.SOURCES)
+    assert {k: e["f64"] for k, e in entries.items() if e["f64"]} == {}
 
 
 def test_unarmed_kernel_tests_recorded_no_downgrade(dev):

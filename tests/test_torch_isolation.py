@@ -1,7 +1,9 @@
 """The port stands alone: neither ``sketches_tpu_torch`` nor ``chip_smoke.py``
 imports JAX or the JAX package, importing them loads no protobuf (the card
-machine has none), and ``chip_smoke.py`` refuses to run, printing no result,
-where it cannot reach a CUDA card or the package."""
+machine has none) and none of the analyzer's layers (``analysis.lint`` and
+``analysis.kernel_audit`` load on first use), and ``chip_smoke.py`` refuses
+to run, printing no result, where it cannot reach a CUDA card or the
+package."""
 
 import ast
 import json
@@ -15,7 +17,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "sketches_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "sketches_tpu"}
-NOT_AT_IMPORT = ("google.protobuf",)
+NOT_AT_IMPORT = ("google.protobuf", "sketches_tpu_torch.analysis.lint",
+                 "sketches_tpu_torch.analysis.kernel_audit")
 
 
 def _imported_roots(path: Path):

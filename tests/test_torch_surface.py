@@ -1,14 +1,17 @@
 """The port's public surface against the JAX package's, module for module.
 
-For every module of ``sketches_tpu`` with a port file, the port module's
-``__all__`` must equal the JAX module's, apart from two explicit lists:
-the deliberate renames and the port-only additions.  The package roots are
-compared the same way.  Modules of the JAX package still to be ported are
-listed with the names they will bring; any other difference fails.
+Every module of ``sketches_tpu`` has a port file (under the same name, or
+under the one ``MODULE_RENAMES`` gives), and the port module's ``__all__``
+must equal the JAX module's, apart from two explicit lists: the deliberate
+renames and the port-only additions.  The package roots are compared the
+same way; any other difference fails.  ``pyproject.toml`` lists every
+package of the port, so an installed port imports whole.
 """
 
 import importlib
+import os
 import pkgutil
+import tomllib
 
 import pytest
 
@@ -21,7 +24,24 @@ import sketches_tpu_torch
 RENAMES = {
     "": {"JaxDDSketch": "TorchDDSketch"},
     "ddsketch": {"JaxDDSketch": "TorchDDSketch"},
+    # Layer 2 of the analyzer is a census of the built CUDA kernels, not a
+    # jaxpr audit: shared memory for VMEM, the census of one library for a
+    # traced callable, SASS counts for element ops, and the f64 and FFMA
+    # opcode classes for the primitive classes the JAX census counts.
+    "analysis": {"jaxpr_audit": "kernel_audit"},
+    "analysis.kernel_audit": {
+        "VMEM_BUDGET_BYTES": "SMEM_BUDGET_BYTES",
+        "vmem_report": "smem_report",
+        "audit_callable": "census",
+        "elem_ops_per_value": "parse_sass",
+        "ELEMENTWISE_PRIMS": "FFMA_OPCODES",
+        "COLLECTIVE_PRIMS": "F64_OPCODES",
+    },
 }
+
+#: Deliberate module renames, JAX module -> port module.  The port's
+#: analyzer audits what nvcc built, not a jaxpr.
+MODULE_RENAMES = {"analysis.jaxpr_audit": "analysis.kernel_audit"}
 
 #: Names the port exports where the JAX module does not, by module.
 PORT_ADDITIONS = {
@@ -66,11 +86,6 @@ PORT_ADDITIONS = {
 #: package keeps them at the repo root).
 PORT_ONLY_MODULES = {"_build", "convert", "examples"}
 
-#: JAX modules still to be ported (ROADMAP queue A), with the names the
-#: package's ``__all__`` will gain.  Remove the entry when it lands.
-TO_BE_PORTED = {"analysis": {"lint", "jaxpr_audit"}}
-
-
 def _modules(pkg) -> dict:
     return {
         m.name[len(pkg.__name__) + 1 :]: m.name
@@ -82,30 +97,29 @@ JAX_MODULES = _modules(sketches_tpu)
 PORT_MODULES = _modules(sketches_tpu_torch)
 
 
-def _pending(name: str) -> bool:
-    return any(name == p or name.startswith(p + ".") for p in TO_BE_PORTED)
-
-
 def test_every_module_has_a_port_or_is_listed():
-    missing = {m for m in JAX_MODULES if m not in PORT_MODULES}
-    # The package's own __init__ is ported; its submodules are pending.
-    assert missing == {m for m in missing if _pending(m)} and missing
-    extra = {m for m in PORT_MODULES if m not in JAX_MODULES}
+    missing = {m for m in JAX_MODULES if MODULE_RENAMES.get(m, m) not in PORT_MODULES}
+    assert not missing, sorted(missing)
+    renamed = set(MODULE_RENAMES.values())
+    extra = {m for m in PORT_MODULES if m not in JAX_MODULES and m not in renamed}
     assert extra == {m for m in extra if m.split(".")[0] in PORT_ONLY_MODULES}
+    # Every listed rename is still in use.
+    assert set(MODULE_RENAMES) <= set(JAX_MODULES) and renamed <= set(PORT_MODULES)
 
 
 @pytest.mark.parametrize(
-    "name", [""] + sorted(m for m in JAX_MODULES if m in PORT_MODULES), ids=lambda n: n or "root"
+    "name", [""] + sorted(JAX_MODULES), ids=lambda n: n or "root"
 )
 def test_module_all_matches_jax(name):
     jmod = importlib.import_module("sketches_tpu" + ("." + name if name else ""))
+    name = MODULE_RENAMES.get(name, name)
     tmod = importlib.import_module("sketches_tpu_torch" + ("." + name if name else ""))
     jall, tall = getattr(jmod, "__all__", None), getattr(tmod, "__all__", None)
     if jall is None:
         assert tall is None, f"{name}: the JAX module has no __all__"
         return
     renames = RENAMES.get(name, {})
-    want = {renames.get(n, n) for n in jall} - TO_BE_PORTED.get(name, set())
+    want = {renames.get(n, n) for n in jall}
     got = set(tall) - PORT_ADDITIONS.get(name, set())
     assert got == want, (
         f"{name or 'root'}: the port lacks {sorted(want - got)}, adds {sorted(got - want)}"
@@ -142,3 +156,20 @@ def test_parallel_exports_make_global_mesh():
     from sketches_tpu_torch import parallel
 
     assert "make_global_mesh" in parallel.__all__ and callable(parallel.make_global_mesh)
+
+
+def test_pyproject_lists_every_package_of_the_port():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        tool = tomllib.load(f)["tool"]["setuptools"]
+    listed = set(tool["packages"])
+    pkg_dir = os.path.join(root, "sketches_tpu_torch")
+    packages = {
+        os.path.relpath(dirpath, root).replace(os.sep, ".")
+        for dirpath, _, files in os.walk(pkg_dir)
+        if "__init__.py" in files
+    }
+    assert packages <= listed, sorted(packages - listed)
+    assert {p for p in listed if p.startswith("sketches_tpu_torch")} == packages
+    # The analyzer's pinned budgets and empty baseline ship with it.
+    assert "analysis/*.json" in tool["package-data"]["sketches_tpu_torch"]
