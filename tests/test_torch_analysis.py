@@ -25,7 +25,6 @@ process, the way a user runs it.  The card half is in
 
 import json
 import os
-import subprocess
 import sys
 
 import pytest
@@ -42,6 +41,10 @@ from sketches_tpu_torch.analysis.lint import (
     write_baseline,
 )
 from sketches_tpu_torch.resilience import EngineUnavailable
+from torch_proc_common import run
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_ROOT = os.path.join(REPO_ROOT, "sketches_tpu_torch")
@@ -1159,9 +1162,7 @@ class TestLiveTree:
 
 def test_cli_as_a_process_exits_zero_on_the_port():
     """The acceptance command, as a user runs it from the repo root."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "sketches_tpu_torch.analysis", "--no-kernels", "--stats"],
-        capture_output=True, text=True, cwd=REPO_ROOT, timeout=240,
-    )
+    proc = run([sys.executable, "-m", "sketches_tpu_torch.analysis", "--no-kernels", "--stats"],
+               cwd=REPO_ROOT, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "stats: no findings" in proc.stdout

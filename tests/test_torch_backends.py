@@ -56,6 +56,9 @@ from sketches_tpu_torch.resilience import (
     SpecError,
     UnequalSketchParametersError,
 )
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 LEAVES = tb.LEAVES
 ALPHA = 0.01

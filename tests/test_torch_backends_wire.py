@@ -23,6 +23,7 @@ import torch
 
 from sketches_tpu import batched as jb
 from sketches_tpu import checkpoint as jc
+from sketches_tpu import native as jnative
 from sketches_tpu.backends import moment as JM
 from sketches_tpu.backends import uniform as JU
 from sketches_tpu.backends import wirefmt as JW
@@ -35,6 +36,9 @@ from sketches_tpu_torch.backends import uniform as TU
 from sketches_tpu_torch.backends import wirefmt as TW
 from sketches_tpu_torch.pb import proto as tpb
 from sketches_tpu_torch.resilience import CheckpointCorrupt, SpecError, WireDecodeError
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 LEAVES = tb.LEAVES
 QS = [0.1, 0.5, 0.9, 0.99]
@@ -104,9 +108,12 @@ def _assert_states_equal(got, ref):
 @pytest.fixture(params=["native", "python"])
 def decode_tier(request, monkeypatch):
     """The native scanner (built with g++ at first use), or the pure-Python
-    walker with ``SKETCHES_TPU_NATIVE=0``."""
+    walker with ``SKETCHES_TPU_NATIVE=0``.  The switch is the JAX
+    package's too, and its engine caches a load made under it: both
+    engines load afresh before and after."""
     if request.param == "python":
         monkeypatch.setenv(native.NATIVE_ENV, "0")
+    jnative.reset()
     native.reset()
     if request.param == "native":
         assert native.wire_scanner() is not None, native.status()
@@ -114,6 +121,7 @@ def decode_tier(request, monkeypatch):
         assert native.wire_scanner() is None
     yield request.param
     monkeypatch.delenv(native.NATIVE_ENV, raising=False)
+    jnative.reset()
     native.reset()
 
 

@@ -15,9 +15,17 @@ import textwrap
 import time
 from pathlib import Path
 
+import pytest
+
 from sketches_tpu_torch import _build
+from torch_proc_common import run
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 _CHUNKS, _CHUNK = 64, 1 << 16
+#: Seconds a builder waits at the gate for its peer, and the test for both.
+_GATE_S, _TIMEOUT_S = 30, 90
 
 _FAKE_NVCC = textwrap.dedent(f"""\
     import sys, time
@@ -37,10 +45,14 @@ _BUILDER = textwrap.dedent("""\
     from sketches_tpu_torch import _build
     _build.BUILD_DIR = Path(sys.argv[2])
     _build.nvcc_path = lambda: sys.argv[3]
-    # Start together: wait until every builder has imported.
+    # Start together: wait until every builder has imported, or give up
+    # when a peer never arrives.
     gate, n = Path(sys.argv[5]), int(sys.argv[6])
     (gate / str(os.getpid())).touch()
+    deadline = time.monotonic() + float(sys.argv[7])
     while len(list(gate.iterdir())) < n:
+        if time.monotonic() > deadline:
+            sys.exit(f"gate: {len(list(gate.iterdir()))} of {n} builders arrived")
         time.sleep(0.001)
     print(sorted(_build.build(["race.cu"], csrc=Path(sys.argv[4]))))
     """)
@@ -69,19 +81,35 @@ def test_concurrent_first_builds_leave_one_whole_library(tmp_path, monkeypatch):
     def builder(gate, n):
         gate.mkdir(exist_ok=True)
         return [sys.executable, "-c", _BUILDER, root, str(build_dir), str(nvcc), str(csrc),
-                str(gate), str(n)]
+                str(gate), str(n), str(_GATE_S)]
 
-    procs = [
-        subprocess.Popen(builder(tmp_path / "gate", 2), stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
-        for _ in range(2)
-    ]
-    # While both builds run, the library is absent or whole.
-    while any(p.poll() is None for p in procs):
-        if lib.is_file():
-            assert _whole(lib)
-        time.sleep(0.01)
-    outs = [p.communicate(timeout=60)[0] for p in procs]
+    # Each builder writes to a file of its own, so no pipe fills while the
+    # test polls.
+    logs = [tmp_path / f"builder{i}.log" for i in range(2)]
+    procs = []
+    for log in logs:
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(builder(tmp_path / "gate", 2), stdout=f,
+                                          stderr=subprocess.STDOUT))
+
+    def outputs():
+        return [log.read_text() for log in logs]
+
+    try:
+        # While both builds run, the library is absent or whole.
+        deadline = time.monotonic() + _TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                pytest.fail(f"the builders passed the {_TIMEOUT_S}-s limit: {outputs()}")
+            if lib.is_file():
+                assert _whole(lib)
+            time.sleep(0.01)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = outputs()
     assert all(p.returncode == 0 for p in procs), outs
     # Both compiled (neither saw the other's library at its start) ...
     assert all("['race.cu']" in o for o in outs), outs
@@ -90,7 +118,6 @@ def test_concurrent_first_builds_leave_one_whole_library(tmp_path, monkeypatch):
     assert sorted(p.name for p in build_dir.iterdir()) == sorted([lib.name, lib.stem + ".log"])
     assert "fake build" in lib.with_suffix(".log").read_text()
     # A third build finds it and compiles nothing.
-    out = subprocess.run(builder(tmp_path / "gate1", 1), capture_output=True, text=True,
-                         timeout=60)
+    out = run(builder(tmp_path / "gate1", 1), timeout=_TIMEOUT_S)
     assert out.returncode == 0 and out.stdout.strip() == "[]", out
     assert os.path.getsize(lib) == _CHUNKS * _CHUNK

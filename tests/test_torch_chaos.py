@@ -30,6 +30,9 @@ from sketches_tpu_torch import tracing as ttr
 from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.resilience import SketchValueError, SpecError
 from torch_chaos_common import CALLS, assert_parity, events, reset_layers, run_jax
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 
 @pytest.fixture(autouse=True)
@@ -126,12 +129,12 @@ def test_cli_exit_code_and_verdict(campaign, steps, seed, tmp_path, capsys):
 
 
 def test_cli_runs_as_a_module():
-    import subprocess
     import sys
 
-    out = subprocess.run(
-        [sys.executable, "-m", "sketches_tpu_torch.chaos", "--steps", "12", "--seed", "4",
-         "--device", "cpu"], capture_output=True, text=True, timeout=120)
+    from torch_proc_common import run
+
+    out = run([sys.executable, "-m", "sketches_tpu_torch.chaos", "--steps", "12", "--seed", "4",
+               "--device", "cpu"], timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "ok=True" in out.stdout
 

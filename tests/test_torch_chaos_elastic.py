@@ -14,6 +14,9 @@ from sketches_tpu import chaos as jc
 from sketches_tpu_torch import chaos as tc
 from sketches_tpu_torch.resilience import SketchValueError
 from torch_chaos_common import CALLS, POOL, assert_parity, reset_layers, run_jax
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 
 @pytest.fixture(autouse=True)

@@ -1,18 +1,19 @@
 """The port's time-window chaos campaign (``sketches_tpu_torch.chaos.
-run_windowed_campaign``) against the JAX package's, on the CPU.  Its own
-file because the JAX package's campaign is the slowest of the six (about
-a minute here, run once); the port's mesh-backed ring draws on
-``["cpu"] * 8``, as the JAX package's on its 8-device virtual mesh.  Also
-the port's copies of ``test_windows.TestChaos``.
+run_windowed_campaign``) on the CPU: the port's copies of
+``test_windows.TestChaos``.  The port's mesh-backed ring draws on
+``["cpu"] * 8``, as the JAX package's on its 8-device virtual mesh.  The
+verdict's parity with the JAX package's campaign is in
+``test_torch_chaos_windowed_parity.py``.
 """
 
-import numpy as np
 import pytest
 
-from sketches_tpu import chaos as jc
 from sketches_tpu_torch import chaos as tc
 from sketches_tpu_torch.resilience import SketchValueError
-from torch_chaos_common import CALLS, POOL, assert_parity, reset_layers, run_jax
+from torch_chaos_common import POOL, reset_layers
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 
 @pytest.fixture(autouse=True)
@@ -20,17 +21,6 @@ def _clean():
     reset_layers()
     yield
     reset_layers()
-
-
-def test_windowed_verdict_equals_jax():
-    jv = run_jax(jc.run_windowed_campaign, *CALLS["windowed"])
-    tv = tc.run_windowed_campaign(*CALLS["windowed"], device="cpu", devices=POOL)
-    assert_parity(jv, tv, mass_keys=("ledgers", "expected", "virtual_clock_s", "serve_stats"))
-    assert set(tv["ledgers"]) == {"dense", "adaptive", "mesh"}
-    # The adaptive ring's per-rung effective alpha is f32 arithmetic on
-    # the collapse level: the packages agree to one f32 rounding.
-    np.testing.assert_allclose(tv["rung_effective_alpha"], jv["rung_effective_alpha"],
-                               rtol=1e-6, atol=0)
 
 
 def test_windowed_campaign_clean_and_deterministic():

@@ -31,6 +31,9 @@ from sketches_tpu_torch import resilience as tr
 from sketches_tpu_torch.analysis import registry
 from sketches_tpu_torch.backends import moment as TM
 from torch_robust_common import ALPHA, QS, mixed_batches, reset_both, steps
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 N = 64
 

@@ -5,10 +5,13 @@ package's scripts.  protobuf is installed here, so ``wire_interop`` takes
 the object bridge."""
 
 import os
-import subprocess
 import sys
 
 import pytest
+from torch_proc_common import run
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,9 +39,9 @@ def test_example_runs_clean(name, tmp_path):
     # shards) oversubscribes the cores, and its spin-waits then stretch a
     # 4 ms CPU ingest past the examples' latency SLOs.  One thread each.
     env.setdefault("OMP_NUM_THREADS", "1")
-    out = subprocess.run(
+    out = run(
         [sys.executable, "-m", f"sketches_tpu_torch.examples.{name}", "--device", "cpu"],
-        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path),
+        timeout=300, env=env, cwd=str(tmp_path),
     )
     assert out.returncode == 0, out.stdout + "\n" + out.stderr
     for line in EXPECT[name]:
@@ -52,8 +55,6 @@ def test_examples_need_a_card_by_default():
 
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    out = subprocess.run(
-        [sys.executable, "-m", "sketches_tpu_torch.examples.wire_interop"],
-        capture_output=True, text=True, timeout=120, cwd=_ROOT,
-    )
+    out = run([sys.executable, "-m", "sketches_tpu_torch.examples.wire_interop"],
+              timeout=120, cwd=_ROOT)
     assert out.returncode != 0 and "device='cpu'" in out.stderr

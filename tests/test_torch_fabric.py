@@ -23,6 +23,9 @@ from sketches_tpu_torch import resilience as tr
 from sketches_tpu_torch import windows as tw
 from sketches_tpu_torch.analysis import registry as treg
 from torch_window_common import DENSE, host, mid_bucket, reset_all, same_answers
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 QS = (0.5, 0.99)
 

@@ -35,6 +35,9 @@ from sketches_tpu_torch.resilience import (
     SpecError,
     UnequalSketchParametersError,
 )
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 QS = [0.5, 0.9, 0.99, 0.999]
 ALPHA = 0.01

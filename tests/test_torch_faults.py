@@ -22,6 +22,9 @@ from sketches_tpu_torch import faults as tf
 from sketches_tpu_torch import resilience as tr
 from sketches_tpu_torch.analysis import registry as treg
 from torch_robust_common import reset_both
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 SEEDS = [0, 1, 7, 12345]
 FRACTIONS = [0.0, 0.01, 0.3, 1.0]

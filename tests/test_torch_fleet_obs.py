@@ -43,6 +43,9 @@ from sketches_tpu_torch import resilience as tr
 from sketches_tpu_torch import telemetry as tt
 from sketches_tpu_torch.backends import uniform as TU
 from torch_obs_common import reset_layers
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

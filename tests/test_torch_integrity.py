@@ -44,6 +44,9 @@ from sketches_tpu_torch.backends import moment as TM
 from sketches_tpu_torch.backends import uniform as TU
 from sketches_tpu_torch.pb import wire as tw
 from torch_robust_common import ALPHA, QS, mixed_batches, reset_both
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 N_BINS = 256
 

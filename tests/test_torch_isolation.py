@@ -8,11 +8,14 @@ package."""
 import ast
 import json
 import shutil
-import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+from torch_proc_common import run
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "sketches_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -61,10 +64,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "added = sorted(set(sys.modules) - before)\n"
         "print(json.dumps(added))\n"
     )
-    out = subprocess.run(
-        [sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True,
-        check=True, timeout=120,
-    )
+    out = run([sys.executable, "-c", probe], cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
     added = json.loads(out.stdout.strip().splitlines()[-1])
     assert "sketches_tpu_torch" in added
     bad = [m for m in added if m.split(".")[0] in FORBIDDEN or m.startswith(NOT_AT_IMPORT)]
@@ -75,10 +76,7 @@ def test_chip_smoke_refuses_without_a_card_or_the_package(tmp_path):
     alone = tmp_path / "chip_smoke.py"
     shutil.copy(ROOT / "chip_smoke.py", alone)
     for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)):
-        out = subprocess.run(
-            [sys.executable, str(script)], cwd=cwd, capture_output=True, text=True,
-            timeout=300,
-        )
+        out = run([sys.executable, str(script)], cwd=cwd, timeout=300)
         # Where a card is present the checkout's own run is the smoke test
         # proper, not this test's business.
         if cwd == ROOT and '"ok": true' in out.stdout:

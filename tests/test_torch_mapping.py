@@ -33,6 +33,9 @@ from sketches_tpu import mapping as jm
 from sketches_tpu_torch import batched as tb
 from sketches_tpu_torch import mapping as tm
 from sketches_tpu_torch.resilience import SpecError
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 NAMES = (
     "logarithmic",

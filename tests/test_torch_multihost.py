@@ -28,6 +28,9 @@ import time
 import numpy as np
 import pytest
 import torch.distributed as dist
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 _WORKER = os.path.join(os.path.dirname(__file__), "_torch_multihost_worker.py")
 _TIMEOUT_S = 60
@@ -60,7 +63,7 @@ def _run_workers(tmp_path, mode, n_procs=2):
         except subprocess.TimeoutExpired:
             hung = True
             p.kill()
-            out, _ = p.communicate()
+            out, _ = p.communicate(timeout=30)
         outs.append(out)
     transcript = "\n".join(
         f"--- worker {i} (rc={p.returncode}) ---\n{o}" for i, (p, o) in enumerate(zip(procs, outs))

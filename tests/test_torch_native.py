@@ -8,6 +8,9 @@ quantiles and the lifted ``to_state`` leaves must be equal (the state's
 leaves compared as numpy arrays through ``convert.state_to_numpy``).
 """
 
+import os
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -26,6 +29,10 @@ from sketches_tpu_torch.resilience import (
     SpecError,
     UnequalSketchParametersError,
 )
+from torch_proc_common import run
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 MAPPINGS = (
     "logarithmic",
@@ -37,8 +44,14 @@ MAPPINGS = (
 
 @pytest.fixture(autouse=True)
 def _fresh_load():
+    # Both packages read one kill switch, SKETCHES_TPU_NATIVE, and each
+    # caches its first load's outcome for the process: a JAX engine first
+    # loaded under the switch, by an earlier test on this worker, would
+    # stay "disabled" here.  Every test starts from a fresh load of both.
+    jn.reset()
     tn.reset()
     yield
+    jn.reset()
     tn.reset()
 
 
@@ -194,3 +207,17 @@ def test_stale_wire_abi_degrades_to_the_python_walker():
     a, b = convert.state_to_numpy(ref), convert.state_to_numpy(degraded)
     for f in tb.LEAVES:
         np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+def test_a_wire_test_on_the_python_walker_leaves_the_jax_engine_loadable():
+    """One worker's order that once failed this module's 13 comparisons
+    with the JAX engine: a wire test on the pure-Python walker (the kill
+    switch set) makes the process's first JAX engine load, then this
+    module's comparisons run.  Each side loads afresh, so both pass."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "no:xdist",
+               "-p", "no:randomly",
+               "tests/test_torch_wire.py::test_decode_foreign_shapes_like_jax[python]",
+               "tests/test_torch_native.py::test_to_state_equals_jax[logarithmic]",
+               "tests/test_torch_native.py::test_probes_and_merge"], cwd=root, timeout=300)
+    assert out.returncode == 0 and "3 passed" in out.stdout, out.stdout + out.stderr

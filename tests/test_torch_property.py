@@ -44,14 +44,14 @@ from torch_property_common import (
     assert_contract,
     assert_same_state,
     finite_f32,
-    one_torch_thread,
     padded_block,
     steady,
     with_mid,
 )
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
 
 QS5 = (0.0, 0.25, 0.5, 0.9, 1.0)
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 
 def _host_equal(port, ref):

@@ -60,28 +60,12 @@ from torch_property_common import (
     gen_values,
     mid_bucket,
     model_check,
-    one_torch_thread,
     state_arrays,
     steady,
 )
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
-
-
-@pytest.fixture(scope="module")
-def jax_compile_cache(tmp_path_factory):
-    """JAX's persistent compilation cache, on for this module: every
-    example builds fresh JAX facades, whose jitted ops would otherwise
-    compile again each time.  The previous settings come back after."""
-    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
-            "jax_persistent_cache_min_entry_size_bytes")
-    before = {k: getattr(jax.config, k) for k in keys}
-    jax.config.update(keys[0], str(tmp_path_factory.mktemp("jax_cache")))
-    jax.config.update(keys[1], 0.0)
-    jax.config.update(keys[2], -1)
-    yield
-    for k, v in before.items():
-        jax.config.update(k, v)
 
 
 #: The JAX file's counts are 100, 100 and 40.

@@ -33,6 +33,9 @@ from sketches_tpu_torch import batched as tb
 from sketches_tpu_torch import convert
 from sketches_tpu_torch import kernels as tk
 from torch_edge_rows import EDGE_QS, edge_leaves, edge_names
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 QS = [0.0, 0.1, 0.25, 0.5, 0.9, 0.99, 1.0, -0.1, 1.1]
 N = 256

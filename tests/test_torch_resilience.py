@@ -40,6 +40,9 @@ from sketches_tpu_torch import native as tn
 from sketches_tpu_torch import parallel as tp
 from sketches_tpu_torch import resilience as tr
 from torch_robust_common import ALPHA, INGEST_LABELS, QS, mixed_batches, reset_both, steps
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 N = 256
 FLOOR_PLAN = {"tier": ("overlap", "tiles", "windowed", "wxla")}
@@ -406,9 +409,15 @@ def test_ingest_fails_on_both_paths(monkeypatch):
 
 @pytest.fixture
 def native_reset():
+    from sketches_tpu import native as jn
+
+    # SKETCHES_TPU_NATIVE is both packages' switch: neither engine keeps
+    # a load made under it past the test.
+    jn.reset()
     tn.reset()
     yield
     tf.disarm()
+    jn.reset()
     tn.reset()
 
 

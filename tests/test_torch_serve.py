@@ -29,6 +29,9 @@ from sketches_tpu_torch import telemetry as tt
 from sketches_tpu_torch import windows as tw
 from sketches_tpu_torch.analysis import registry as treg
 from torch_window_common import CFG, DENSE, host, mid_bucket, reset_all, same_answers
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 PKG = {"j": (js, jf, jr, jt, ji, jw), "t": (ts, tf, tr, tt, ti, tw)}
 

@@ -11,6 +11,9 @@ import pytest
 
 from sketches_tpu import store as js
 from sketches_tpu_torch import store as ts
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 KINDS = {
     "dense": lambda m: m.DenseStore(),

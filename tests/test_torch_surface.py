@@ -17,6 +17,9 @@ import pytest
 
 import sketches_tpu
 import sketches_tpu_torch
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 #: Deliberate renames, JAX name -> port name, by module ("" is the root).
 #: The JAX package's device-tier scalar sketch is named for its backend;

@@ -64,6 +64,9 @@ from sketches_tpu_torch.ddsketch import DDSketch as TDDSketch
 from sketches_tpu_torch.pb import wire as tw
 from torch_obs_common import arm_telemetry, map_labels, map_row, reset_layers
 from torch_robust_common import ALPHA, QS, mixed_batches
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 128

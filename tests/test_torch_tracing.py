@@ -42,6 +42,9 @@ from sketches_tpu_torch import telemetry as tt
 from sketches_tpu_torch import tracing as ttr
 from torch_obs_common import ENGINE_LABELS, arm_telemetry, reset_layers
 from torch_robust_common import ALPHA, QS, mixed_batches
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 N = 128
 FLOOR_PLAN = {"tier": ("overlap", "tiles", "windowed", "wxla")}

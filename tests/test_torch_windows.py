@@ -48,6 +48,9 @@ from torch_window_common import (
     reset_all,
     same_answers,
 )
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 
 @pytest.fixture(autouse=True)

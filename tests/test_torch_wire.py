@@ -13,7 +13,6 @@ JAX results are waited for (``jax.block_until_ready``) before the port's
 side runs.
 """
 
-import subprocess
 import sys
 from pathlib import Path
 
@@ -24,6 +23,7 @@ import pytest
 import torch
 
 from sketches_tpu import batched as jb
+from sketches_tpu import native as jn
 from sketches_tpu.pb import DDSketchProto as JProto
 from sketches_tpu.pb import ddsketch_pb2 as jpb
 from sketches_tpu.pb import wire as jw
@@ -42,6 +42,10 @@ from tests.test_wire import (
     store_bytes,
     varint,
 )
+from torch_proc_common import run
+from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "jax_compile_cache")
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -60,13 +64,17 @@ SPECS = {
 @pytest.fixture(params=["native", "python"])
 def driver(request, monkeypatch):
     """The port's decode driver: the native scanner, or the pure-Python
-    walker (``SKETCHES_TPU_NATIVE=0``)."""
+    walker (``SKETCHES_TPU_NATIVE=0``).  The switch is the JAX package's
+    too, and its engine caches a load made under it: both engines load
+    afresh before and after, so no later test inherits a disabled one."""
     if request.param == "python":
         monkeypatch.setenv(tn.NATIVE_ENV, "0")
+    jn.reset()
     tn.reset()
     assert tn.status()["wire"] == request.param
     yield request.param
     monkeypatch.delenv(tn.NATIVE_ENV, raising=False)
+    jn.reset()
     tn.reset()
 
 
@@ -377,9 +385,6 @@ print("ok")
 
 
 def test_canonical_codec_runs_without_protobuf():
-    out = subprocess.run(
-        [sys.executable, "-c", _NO_PROTOBUF], cwd=ROOT, capture_output=True, text=True,
-        timeout=300,
-    )
+    out = run([sys.executable, "-c", _NO_PROTOBUF], cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"

@@ -1,5 +1,5 @@
 """Shared helpers of the chaos-harness parity tests (``test_torch_chaos``,
-``test_torch_chaos_elastic``, ``test_torch_chaos_windowed``).
+``test_torch_chaos_elastic``, ``test_torch_chaos_windowed_parity``).
 
 Each test runs one campaign of the JAX package and the same call of the
 port (``device="cpu"``; the mesh campaigns on ``["cpu"] * 8``, the

@@ -30,18 +30,6 @@ GAMMA = (1.0 + ALPHA) / (1.0 - ALPHA)
 WIDTH = 384
 
 
-@pytest.fixture(scope="module")
-def one_torch_thread():
-    """The suites' many small CPU ops on one intra-op thread: beside JAX's
-    own pool, torch's pool costs more than it saves at these sizes (about
-    15x slower per example on 8 cores).  The caller's count comes back
-    after the module."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 def steady(max_examples: int):
     """The suites' settings: derandomized, no database, no deadline."""
     return settings(
