@@ -15,8 +15,9 @@ plain PyTorch version on the card, then drives three paths at full size:
   ``disabled_tiers=("overlap",)`` must resolve ``windowed`` (positive) and
   ``tiles`` (mixed);
 * ``DistributedDDSketch`` over two value shards on the one card, four
-  batches of positive traffic, against the ``engine="plain"`` facade on the
-  same mesh: the default query resolves ``overlap``, and with
+  batches of positive traffic (the last ragged, padded with weight-0
+  entries: K1's weighted instantiation), against the ``engine="plain"``
+  facade on the same mesh: the default query resolves ``overlap``, and with
   ``disabled_tiers=("windowed", "wxla")`` the floor ``xla`` answers through
   one ``fused_quantile`` launch.
 
@@ -171,7 +172,13 @@ also builds the ingest, full-window and overlap kernels of other trees
 (each DIR holds ``sketches_tpu_torch/csrc``: a ``git archive`` of the parent
 commit, or a patched copy, unpacked under the gitignored ``build/``) and
 times them beside this tree's, in turns on the same card; the results ride
-in the ``times`` line under ``compare``, labelled by DIR's name.
+in the ``times`` line under ``compare``, labelled by DIR's name, with
+``compare_bit_equal``: whether each tree's ingest outputs on each timed
+batch equal this tree's bit for bit.
+
+The ``kernels`` line's K1 row also carries its weighted and unit-weight
+launches apart (``launches_weighted``, ``launches_unit``) and the times of
+its weighted and padded weighted batches.
 
     python3 chip_smoke.py --checkpoint-writers
 
@@ -310,6 +317,19 @@ def settled_ms(fn, *, runs: int = 3, log: dict | None = None, **kw) -> float:
     return min(least)
 
 
+# K1's weighted launches ride beside the five wrappers' counts under this key.
+K1_WEIGHTED = "ingest_histogram.weighted"
+
+
+def launch_counts() -> dict:
+    """The wrappers' launch counts, and K1's weighted launches apart
+    (``K1_WEIGHTED``; its unit-weight launches are the rest of
+    ``ingest_histogram``'s)."""
+    from sketches_tpu_torch import kernels
+
+    return {**kernels.launch_counts(), K1_WEIGHTED: kernels.ingest_histogram.weighted_launches}
+
+
 def c_entry(lib, name: str):
     """``name`` of a loaded kernel library, typed as the port binds it."""
     import ctypes
@@ -366,11 +386,6 @@ def mean(xs) -> float:
     return sum(xs) / len(xs)
 
 
-def compare_ms(runs: dict) -> dict:
-    """{label: mean of its two turns} from :func:`alternate_ms`."""
-    return {k: mean(v) for k, v in alternate_ms(runs).items()}
-
-
 def sm_clock_mhz():
     """The card's current SM clock in MHz from ``nvidia-smi`` (None when it
     cannot be read)."""
@@ -413,13 +428,15 @@ def max_abs_diff(a, b) -> float:
 
 
 def require_rel(a, b, rtol: float, what: str) -> float:
-    """|a - b| <= rtol * |b| everywhere (NaN positions equal); returns the
-    largest absolute difference."""
+    """|a - b| <= rtol * |b| everywhere (NaN positions equal, infinities
+    equal: an empty stream's min and max); returns the largest absolute
+    difference."""
     import torch
 
     err = max_abs_diff(a, b)
     keep = ~torch.isnan(b)
-    ok = ((a[keep].double() - b[keep].double()).abs() <= rtol * b[keep].double().abs()).all()
+    a, b = a[keep].double(), b[keep].double()
+    ok = ((a == b) | ((a - b).abs() <= rtol * b.abs())).all()
     require(bool(ok), f"{what}: relative difference above {rtol}")
     return err
 
@@ -749,10 +766,12 @@ def _weighted_rank_boundary(device, errs) -> dict:
 
 
 def _exact_lower(x, qs):
+    """Exact lower quantiles of each row of ``x``, NaN entries (padding)
+    left out."""
     import torch
 
     q = torch.tensor(qs, dtype=torch.float64, device=x.device)
-    return torch.quantile(x.double(), q, dim=1, interpolation="lower").T
+    return torch.nanquantile(x.double(), q, dim=1, interpolation="lower").T
 
 
 def phase_main_path(device, name: str, negate: float, expect_tier: str) -> dict:
@@ -796,7 +815,7 @@ def phase_main_path(device, name: str, negate: float, expect_tier: str) -> dict:
     after_default = kernels.launch_counts()
     ladder_tier, ladder = sk.get_quantile_values_resolved(QS, disabled_tiers=("overlap",))
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     require(per_batch == [0] + [chunks] * (N_BATCHES - 1),
             f"ingest launches per batch {per_batch}, expected 0 then {chunks} each")
     require(tier == "overlap", f"{name} traffic resolved {tier!r}, expected 'overlap'")
@@ -856,7 +875,11 @@ def phase_main_path(device, name: str, negate: float, expect_tier: str) -> dict:
 
 def phase_distributed(device) -> dict:
     """``DistributedDDSketch`` over two value shards on the one card, at the
-    quick start's width, against the plain engine on the same mesh."""
+    quick start's width, against the plain engine on the same mesh.  The
+    last batch is ragged: padded to the width with weight-0 entries (NaN
+    and +-inf under them), as the facade asks, and weight 1 on the live
+    values, so it takes K1's weighted instantiation while every mass stays
+    an integer and the two engines' states stay equal."""
     import torch
 
     from sketches_tpu_torch import batched, kernels
@@ -873,18 +896,26 @@ def phase_distributed(device) -> dict:
     abs_sum = torch.zeros(N_STREAMS, dtype=torch.float64, device=device)
     add_ms, plain_add_ms = [], []
     kernels.reset_launch_counts()
-    for _ in range(N_BATCHES):
-        v = torch.empty((N_STREAMS, BATCH), device=device).log_normal_(0.0, 2.0, generator=gen)
-        kept.append(v[sample])
-        abs_sum += v.abs().sum(-1, dtype=torch.float64)
+    for b in range(N_BATCHES):
+        if b < N_BATCHES - 1:
+            v = torch.empty((N_STREAMS, BATCH), device=device).log_normal_(
+                0.0, 2.0, generator=gen)
+            w, live = None, torch.ones_like(v, dtype=torch.bool)
+        else:
+            v, w = padded_batch(gen, N_STREAMS, BATCH, device)
+            live = w > 0
+            w = live.float()
+        kept.append(torch.where(live, v, float("nan"))[sample])
+        abs_sum += torch.where(live, v.abs(), 0.0).sum(-1, dtype=torch.float64)
         for facade, times in ((dist, add_ms), (ref, plain_add_ms)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            facade.add(v)
+            facade.add(v, w)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        del v
+        del v, w, live
     ingest_launches = kernels.ingest_histogram.launches
+    weighted_launches = kernels.ingest_histogram.weighted_launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tier, got = dist.get_quantile_values_resolved(QS)
@@ -893,9 +924,10 @@ def phase_distributed(device) -> dict:
     after_default = kernels.launch_counts()
     floor_tier, floor = dist.get_quantile_values_resolved(QS, disabled_tiers=("windowed", "wxla"))
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    require(ingest_launches == 2 * N_BATCHES,
-            f"{ingest_launches} ingest launches, expected one per value shard per batch")
+    launches = launch_counts()
+    require(ingest_launches == 2 * N_BATCHES and weighted_launches == 2,
+            f"{ingest_launches} ingest launches ({weighted_launches} weighted), expected one"
+            f" per value shard per batch (the padded batch's two weighted)")
     require(tier == "overlap", f"distributed default resolved {tier!r}, expected 'overlap'")
     require(after_default["fused_quantile_tiles_overlap"] == 1, "overlap did not launch once")
     require(floor_tier == "xla", f"distributed floor resolved {floor_tier!r}, expected 'xla'")
@@ -957,22 +989,47 @@ def build_compare(trees) -> dict:
     sources = {"sk_ingest": "ingest.cu", "sk_quantile": "quantile.cu", "sk_overlap": "overlap.cu"}
     csrcs = {Path(t).name: Path(t).resolve() / "sketches_tpu_torch" / "csrc" for t in trees}
     require(len(csrcs) == len(trees), "--compare trees need distinct names")
-    with ThreadPoolExecutor(len(csrcs)) as pool:
-        list(pool.map(lambda c: _build.build(list(sources.values()), c), csrcs.values()))
+    # One build a distinct library: trees that share a source share its
+    # library (named by content), and two builds of one file would race.
+    todo = {}
+    for c in csrcs.values():
+        for src in sources.values():
+            todo.setdefault(_build.library_path(src, c), (src, c))
+    with ThreadPoolExecutor(max(1, len(todo))) as pool:
+        list(pool.map(lambda job: _build.build([job[0]], job[1]), todo.values()))
     return {label: {e: c_entry(_build.library(src, c), e) for e, src in sources.items()}
             for label, c in csrcs.items()}
+
+
+def padded_batch(gen, n: int, s: int, device):
+    """A ragged batch padded to width ``s`` (the public way to send one):
+    row r's first L_r values are live, L_r drawn from 0..s; lognormal(0, 2)
+    values with weights in (0, 2); the padding has weight 0 over NaN, +inf
+    and -inf values."""
+    import torch
+
+    v = torch.empty((n, s), device=device).log_normal_(0.0, 2.0, generator=gen)
+    w = torch.rand((n, s), device=device, generator=gen) * 2.0
+    live = torch.randint(0, s + 1, (n, 1), device=device, generator=gen)
+    pad = torch.arange(s, device=device)[None, :] >= live
+    junk = torch.tensor([float("nan"), float("inf"), -float("inf")], device=device)
+    fill = junk[torch.randint(0, 3, (n, s), device=device, generator=gen)]
+    return torch.where(pad, fill, v).contiguous(), torch.where(pad, 0.0, w).contiguous()
 
 
 def time_ingest(device, rate: float, others: dict) -> dict:
     """K1 alone at the main path's launch shape, one stream chunk x 256
     values: lognormal values (the ``kernels`` line's row), a constant batch
-    (every value in one bin, the heaviest skew) and a weighted call, timed
-    in turns (lognormal, constant, weighted, weighted, constant, lognormal);
-    each ``ms`` is the mean of its two turns, ``turns_ms`` both of them and
+    (every value in one bin, the heaviest skew), a weighted call and a
+    padded weighted batch (:func:`padded_batch`), timed in turns (lognormal,
+    constant, weighted, padded, padded, weighted, constant, lognormal); each
+    ``ms`` is the mean of its two turns, ``turns_ms`` both of them and
     ``sm_mhz`` the SM clock read just before the first; ``host_us`` is the
     host's time to launch it.  ``others`` ({label: sk_ingest of another
-    build}) are timed beside this kernel in turns, on each of the three
-    batches, and their host times beside its own."""
+    build}) are timed beside this kernel in turns, on each of the four
+    batches, and their host times beside its own; ``compare_bit_equal``
+    says, for each, whether its outputs on each batch equal this build's
+    bit for bit."""
     import torch
 
     from sketches_tpu_torch import batched, kernels
@@ -983,6 +1040,7 @@ def time_ingest(device, rate: float, others: dict) -> dict:
     v = torch.empty((n, BATCH), device=device).log_normal_(0.0, 2.0, generator=gen)
     const = torch.full_like(v, 3.7)
     w = torch.rand((n, BATCH), device=device, generator=gen) * 2.0
+    vp, wp = padded_batch(gen, n, BATCH, device)
     koff = torch.full((n,), -(N_BINS // 2) + 64, dtype=torch.int32, device=device)
     ncols = kernels._ncols(spec.n_tiles)
     hist_pos = torch.empty((n, N_BINS), dtype=torch.float32, device=device)
@@ -990,18 +1048,23 @@ def time_ingest(device, rate: float, others: dict) -> dict:
     cols = torch.empty((n, ncols), dtype=torch.float32, device=device)
     consts = kernels._mapping_consts(spec.mapping, device)
 
-    def run(fn, x, weights=None):
+    def run(fn, x, weights=None, outs=(hist_pos, hist_neg, cols)):
         return launcher(fn, x.data_ptr(), None if weights is None else weights.data_ptr(),
-                        koff.data_ptr(), hist_pos.data_ptr(), hist_neg.data_ptr(),
-                        cols.data_ptr(), consts.data_ptr(), spec.mapping.kernel_id, n, BATCH,
-                        N_BINS, ncols)
+                        koff.data_ptr(), *(o.data_ptr() for o in outs),
+                        consts.data_ptr(), spec.mapping.kernel_id, n, BATCH, N_BINS, ncols)
+
+    def outputs(fn, x, weights=None):
+        outs = (torch.empty_like(hist_pos), torch.empty_like(hist_neg), torch.empty_like(cols))
+        run(fn, x, weights, outs)()
+        torch.cuda.synchronize()
+        return outs
 
     def plain(x, weights=None):
         return lambda: kernels.ingest_histogram_plain(spec, x, weights, koff,
                                                       weighted=weights is not None)
 
     fn = kernels._entry("sk_ingest")
-    batches = {"lognormal": (v,), "constant": (const,), "weighted": (v, w)}
+    batches = {"lognormal": (v,), "constant": (const,), "weighted": (v, w), "padded": (vp, wp)}
     sm_mhz = sm_clock_mhz()
     turns = alternate_ms({label: run(fn, *b) for label, b in batches.items()})
     bytes_moved = 4 * (n * BATCH + n + 2 * n * N_BINS + n * ncols)
@@ -1011,15 +1074,47 @@ def time_ingest(device, rate: float, others: dict) -> dict:
            "host_us": host_us(run(fn, v)), **bound(bytes_moved, ops, rate)}
     out["constant"] = {"ms": mean(turns["constant"]), "turns_ms": turns["constant"],
                        "plain_ms": event_ms(plain(const))}
+    # A padded batch reads every value and weight; its ops count only the
+    # live values.
+    live = int((wp > 0).sum())
     out["weighted"] = {"ms": mean(turns["weighted"]), "turns_ms": turns["weighted"],
                        "plain_ms": event_ms(plain(v, w)),
                        **bound(bytes_moved + 4 * n * BATCH, ops, rate)}
+    out["padded"] = {"ms": mean(turns["padded"]), "turns_ms": turns["padded"],
+                     "plain_ms": event_ms(plain(vp, wp)), "live_share": live / (n * BATCH),
+                     **bound(bytes_moved + 4 * n * BATCH,
+                             INGEST_OPS_PER_VALUE * live + 2 * n * N_BINS, rate)}
+    # The padded batch against the plain version, and bit-identical again.
+    got, again = outputs(fn, vp, wp), outputs(fn, vp, wp)
+    require(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                for x, y in zip(got, again)), "padded ingest is not bit-identical run to run")
+    ref = kernels.ingest_histogram_plain(spec, vp, wp, koff, weighted=True)
+    sc = kernels._COL["sum"]
+    keep = [c for c in range(ncols) if c != sc]
+    for a, b in ((got[0], ref[0]), (got[1], ref[1]), (got[2][:, keep], ref[2][:, keep])):
+        require_rel(a, b, 1e-5, "padded weighted ingest")
+    scale = torch.nansum(torch.where(wp > 0, vp * wp, 0.0).abs(), dim=-1)
+    require(bool(((got[2][:, sc] - ref[2][:, sc]).abs() <= 1e-5 * scale).all()),
+            "padded weighted ingest: sum column differs")
+    del got, again, ref
     if others:
-        out["compare"] = {
-            label: compare_ms({"this": run(fn, *b), **{k: run(f, *b) for k, f in others.items()}})
+        cmp_turns = {
+            label: alternate_ms({"this": run(fn, *b), **{k: run(f, *b) for k, f in others.items()}})
             for label, b in batches.items()
         }
+        out["compare"] = {label: {k: mean(t) for k, t in got.items()}
+                          for label, got in cmp_turns.items()}
+        out["compare_turns_ms"] = cmp_turns
         out["compare_host_us"] = {k: host_us(run(f, v)) for k, f in others.items()}
+        out["compare_bit_equal"] = {}
+        for k, f in others.items():
+            same = {}
+            for label, b in batches.items():
+                mine, theirs = outputs(fn, *b), outputs(f, *b)
+                same[label] = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                                  for x, y in zip(mine, theirs))
+                del mine, theirs
+            out["compare_bit_equal"][k] = same
     return out
 
 
@@ -1435,7 +1530,7 @@ def phase_wire(device, facades: dict) -> dict:
                      "encode_MBps": n_bytes / t_enc / 1e6, "decode_MBps": n_bytes / t_dec / 1e6,
                      "ladder_tier": tier_a, "key_offset": spec.key_offset}
     del back, dec
-    out["launches"] = kernels.launch_counts()
+    out["launches"] = launch_counts()
     emit("wire", **out)
     out["pinned_facade"] = pinned
     return out
@@ -1572,7 +1667,7 @@ def phase_checkpoint(device, pinned, writers=False) -> dict:
             out["corrupt_refused"] = str(e)[:200]
         else:
             raise SmokeFailure("a checkpoint with a flipped bit restored")
-    out["launches"] = kernels.launch_counts()
+    out["launches"] = launch_counts()
     emit("checkpoint", **out)
     return out
 
@@ -1788,7 +1883,7 @@ def phase_backends(device) -> dict:
     ingest_launches = kernels.ingest_histogram.launches
     tier, got = ad.get_quantile_values_resolved(QS)
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     require(ingest_launches > 0, "add launched no ingest kernel")
     require(tier == "overlap" and launches["fused_quantile_tiles_overlap"] == 1,
             f"the adaptive default route resolved {tier!r} without one overlap launch")
@@ -1796,7 +1891,7 @@ def phase_backends(device) -> dict:
     xla_off = ("overlap", "tiles", "windowed", "wxla")
     xla_tier, xla = ad.get_quantile_values_resolved(QS, disabled_tiers=xla_off)
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()  # the main path's, before any timing
+    launches = launch_counts()  # the main path's, before any timing
     require(win_tier == "windowed" and launches["fused_quantile_windowed"] == 1,
             f"without overlap the adaptive facade resolved {win_tier!r}")
     require(xla_tier == "xla", f"the floor resolved {xla_tier!r}")
@@ -2010,7 +2105,7 @@ def phase_backends(device) -> dict:
             del restored
             path.unlink()
     out["checkpoint"] = ck
-    at_262k = kernels.launch_counts()
+    at_262k = launch_counts()
     out["launches"] = {k: launches[k] + at_262k[k] for k in launches}
     emit("backends", **out)
     return out
@@ -2121,7 +2216,7 @@ def _ladder_walk(device) -> dict:
             f"the ledger holds {steps}")
     require(sorted(sk._query_disabled) == ["overlap", "tiles", "windowed", "wxla"],
             f"persistent demotions {sorted(sk._query_disabled)}")
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     resilience.reset()
 
     # Each tier's query, timed on a facade sharing the walked state.
@@ -2207,7 +2302,7 @@ def _distributed_walk(device) -> dict:
     steps = _ledger_steps()
     require(steps == [("distributed.query", a, b) for a, b in LADDER_WALK],
             f"the distributed ledger holds {steps}")
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     require(launches["fused_quantile"] == 1, "the distributed floor did not launch K2 once")
     floor_ms = event_ms(lambda: dist.get_quantile_values(QS))
     resilience.reset()
@@ -2627,9 +2722,9 @@ def phase_observability(device, card: dict, times: dict) -> dict:
     bundle = tracing.dump_forensics("observability")
     lines, n_events = tracing.explain(bundle, "trigger")
     require(n_events >= 2, f"explain found {n_events} causal events: {lines}")
-    launches = kernels.launch_counts()
-    for name, count in launches.items():
-        require(count > 0, f"the armed path never launched {name}")
+    launches = launch_counts()
+    for name in kernels.launch_counts():
+        require(launches[name] > 0, f"the armed path never launched {name}")
     armed_s = time.perf_counter() - t_phase
 
     # 6. Disarm and reset all four layers; the disarmed cost.
@@ -2749,11 +2844,15 @@ class _Uncounted:
         from sketches_tpu_torch import kernels
 
         self._saved = {f: f.launches for f in kernels._KERNEL_WRAPPERS}
+        self._weighted = kernels.ingest_histogram.weighted_launches
         self._plain = _PlainOnCard.calls
 
     def __exit__(self, *exc):
+        from sketches_tpu_torch import kernels
+
         for f, n in self._saved.items():
             f.launches = n
+        kernels.ingest_histogram.weighted_launches = self._weighted
         _PlainOnCard.calls = self._plain
         return False
 
@@ -3118,7 +3217,7 @@ def phase_windows(device) -> dict:
         fps.stop()
         plain.stop()
     plain_on_card = plain.check("windows")
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     for name in ("ingest_histogram", "fused_quantile", "fused_quantile_tiles_overlap"):
         require(launches[name] > 0, f"windows: {name} never launched")
     out = {
@@ -3294,7 +3393,7 @@ def phase_serve(device) -> dict:
         plain.stop()
         faults.disarm()
     plain_on_card = plain.check("serve")
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     for name in ("ingest_histogram", "fused_quantile", "fused_quantile_tiles_overlap"):
         require(launches[name] > 0, f"serve: {name} never launched")
     lat = sorted(latencies)
@@ -3436,7 +3535,7 @@ def phase_fabric(device) -> dict:
         plain.stop()
         faults.disarm()
     plain_on_card = plain.check("fabric")
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     for name in ("ingest_histogram", "fused_quantile_tiles_overlap"):
         require(launches[name] > 0, f"fabric: {name} never launched")
     out = {
@@ -3527,7 +3626,7 @@ def _mp_gloo_rank(rank: int, world: int) -> dict:
     (tier, ans), query_s = _mp_seconds(lambda: facade.get_quantile_values_resolved(list(QS)))
     (tier_floor, ans_floor), floor_s = _mp_seconds(
         lambda: facade.get_quantile_values_resolved(list(QS), disabled_tiers=("windowed", "wxla")))
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     require((tier, tier_floor) == ("overlap", "xla"), f"tiers {tier}, {tier_floor}")
     require(int(folded.count[0]) == MP_SHARDS * BATCH, f"count {int(folded.count[0])}")
     fold_bytes = _mp_state_bytes(folded)
@@ -3584,7 +3683,7 @@ def _mp_nccl_rank() -> dict:
     _, ingest_s = _mp_seconds(lambda: b.add(v))
     before = b.state.map(lambda x: x.clone())
     folded, fold_s = _mp_seconds(lambda: psum_merge(b.state, axis_name="values", mesh=mesh))
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     diff = [f for f in LEAVES if not torch.equal(getattr(folded, f), getattr(before, f))]
     require(not diff, f"the world-of-one fold changed {diff}")
     fold_bytes = _mp_state_bytes(folded)
@@ -3738,7 +3837,7 @@ def phase_chaos(device) -> dict:
                                  "--device", str(device),
                                  "--out", path])
             seconds = time.perf_counter() - t0
-            launches = kernels.launch_counts()
+            launches = launch_counts()
             with open(path, encoding="utf-8") as f:
                 verdict = json.load(f)
             require(rc == 0 and verdict["ok"] and not verdict["outcomes"].get("undetected"),
@@ -3802,7 +3901,7 @@ def phase_examples(device) -> dict:
         with contextlib.redirect_stdout(buf):
             rc = module.main(["--device", str(device)])
         seconds = time.perf_counter() - t0
-        launches = kernels.launch_counts()
+        launches = launch_counts()
         lines = buf.getvalue().strip().splitlines()
         require(rc == 0 and lines and closing in lines[-1],
                 f"example {name}: rc {rc}, output ends {lines[-3:]}")
@@ -3971,7 +4070,12 @@ def main(argv=None) -> int:
     table[1].update(ms_2048=t_full_2048["ms"], bound_ms_2048=t_full_2048["bound_ms"],
                     plain_ms_2048=t_full_2048["plain_ms"])
     table[0].update(ms_constant=t_ingest["constant"]["ms"],
-                    ms_weighted=t_ingest["weighted"]["ms"])
+                    ms_weighted=t_ingest["weighted"]["ms"],
+                    bound_ms_weighted=t_ingest["weighted"]["bound_ms"],
+                    plain_ms_weighted=t_ingest["weighted"]["plain_ms"],
+                    ms_padded=t_ingest["padded"]["ms"],
+                    launches_weighted=launched(K1_WEIGHTED),
+                    launches_unit=launched("ingest_histogram") - launched(K1_WEIGHTED))
     emit("done", seconds=time.perf_counter() - t_start)
     print(card["smi"])
     print(json.dumps({"kernels": table}))

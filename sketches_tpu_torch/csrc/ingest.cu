@@ -32,8 +32,16 @@
 //     batch) adds 32 once instead of serializing 32 atomics on one address.
 //   * Weighted calls keep a fixed summation order: lanes that hit the same
 //     (store, bin) in one step are grouped with __match_any_sync and the
-//     group's lowest lane adds the group's mass, summed in lane order.  No
-//     atomics, so a weighted call is bit-identical from run to run.
+//     group's lowest lane (its leader) adds the group's mass to the bin.
+//     The mass is the leader's weight, then each other member's in lane
+//     order; a bin takes its groups' masses step by step, in value order.
+//     Only the lanes that join another lane's group are shuffled to the
+//     leaders (one ballot names them), so a step costs one shuffle per
+//     collision rather than a sweep of all 32 lanes, and the steps unroll
+//     with the chunk in registers as the unit path's do.  A step of padding
+//     only (no live signed value) skips the grouping.  No atomics, so a
+//     weighted call is bit-identical from run to run.  The match itself is
+//     the step's largest cost left (PERF.md §6, K1).
 //   * Epilogue: each lane reads one 16-byte vector of every 128-bin tile,
 //     writes it to the output row, zeroes it for the warp's next row, and
 //     the tile's mass is one warp reduction (__reduce_add_sync for counts,
@@ -154,17 +162,24 @@ __device__ __forceinline__ void ingest_one(float v, float w, bool in, int lo, in
     a.clow += key < lo ? signed_w : 0.0f;
     a.chigh += key > hi ? signed_w : 0.0f;
     a.neg_total += is_neg ? wl : 0.0f;
-    // Group the lanes that hit the same (store, bin); the lowest adds the
-    // group's mass, summed in lane order.
+    // A step with no signed live value (padding) adds nothing.
+    if (__ballot_sync(sk::kFull, code >= 0) == 0u) return;  // warp-uniform
+    // Group the lanes that hit the same (store, bin).  A leader's mass
+    // starts at its own weight (> 0, so equal to 0 + w) and takes the other
+    // members' in lane order: the lanes of `rest` in ascending order, each
+    // kept by the leader whose group holds it.
     const unsigned peers = __match_any_sync(sk::kFull, code);
-    float mass = 0.0f;
-#pragma unroll
-    for (int l = 0; l < sk::kLanes; ++l) {
+    const bool leads = lane == __ffs(peers) - 1;
+    unsigned rest = __ballot_sync(sk::kFull, code >= 0 && !leads);  // warp-uniform
+    float mass = signed_w;
+    while (rest != 0u) {
+      const int l = __ffs(rest) - 1;
+      rest &= rest - 1u;
       const float ml = __shfl_sync(sk::kFull, signed_w, l);
       if ((peers >> l) & 1u) mass += ml;
     }
-    if (code >= 0 && lane == __ffs(peers) - 1) h[code] += mass;
-    __syncwarp();
+    if (code >= 0 && leads) h[code] += mass;
+    __syncwarp();  // this step's adds before the next step's leaders read
   } else {
     a.zero += is_zero;
     if (in) a.sum += v;
@@ -298,22 +313,13 @@ __global__ void __launch_bounds__(kMaxWarps * sk::kLanes) ingest_kernel(const Ar
       if (WEIGHTED) load_chunk(a.weights + nrow * s, nbase, s, nw);
       if (nbase == 0) nlo = a.key_offset[nrow];
     }
-    if constexpr (WEIGHTED) {
-      // Not unrolled: ptxas fails register allocation (C7600) on eight
-      // unrolled match-and-shuffle steps.
-#pragma unroll 1
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j0 = base + u * sk::kLanes;
-        if (j0 >= s) break;  // warp-uniform
-        ingest_one<MAP, true>(v[u], w[u], j0 + lane < s, lo, a.n_bins, k, acc, h);
-      }
-    } else {
+    // Unrolled, so v[u] and w[u] stay in registers.
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j0 = base + u * sk::kLanes;
-        if (j0 >= s) break;  // warp-uniform
-        ingest_one<MAP, false>(v[u], 1.0f, j0 + lane < s, lo, a.n_bins, k, acc, h);
-      }
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j0 = base + u * sk::kLanes;
+      if (j0 >= s) break;  // warp-uniform
+      ingest_one<MAP, WEIGHTED>(v[u], WEIGHTED ? w[u] : 1.0f, j0 + lane < s, lo, a.n_bins, k,
+                                acc, h);
     }
     if (nbase == 0) {
       finish_row<WEIGHTED>(a, row, acc, h);

@@ -248,13 +248,16 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+    """Kernel launches since the last :func:`reset_launch_counts`.  K1's
+    weighted launches are also counted apart, in
+    ``ingest_histogram.weighted_launches``."""
     return {f.__name__: f.launches for f in _KERNEL_WRAPPERS}
 
 
 def reset_launch_counts() -> None:
     for f in _KERNEL_WRAPPERS:
         f.launches = 0
+    ingest_histogram.weighted_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +315,7 @@ def ingest_histogram(
         spec.mapping.kernel_id, n, s, spec.n_bins, ncols,
     )
     ingest_histogram.launches += 1
+    ingest_histogram.weighted_launches += int(weighted)
     return hist_pos, hist_neg, cols
 
 

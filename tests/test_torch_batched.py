@@ -180,6 +180,45 @@ def test_add_nan_padding_and_per_stream_offsets():
     assert_state_equal(got, ref, weighted=True, skip=("sum",))
 
 
+@pytest.mark.parametrize("live_share", [0.25, 0.5, 1.0])
+def test_padded_ragged_batches_through_the_facade_match_jax(live_share):
+    """Ragged batches padded to a fixed width, the public way to send them:
+    ``BatchedDDSketch.add(values, weights)`` with each row's first L values
+    live (L drawn so the live share is about ``live_share``; some rows
+    empty) and weight 0 over NaN and +-inf after them.  The weights are
+    dyadic (0.5, 1, 2, 3), so every mass sums exactly in any order: each
+    leaf but ``sum`` equals the JAX facade's, the sum within 1e-5 *
+    sum|v * w|, the quantiles rtol 1e-6 (NaN for an empty stream) against
+    the un-jitted ``jb.quantile`` of the JAX facade's state: dyadic masses
+    put ranks on integers, where XLA:CPU's fused multiply-add in the jitted
+    tiers drops an answer a bucket (ROADMAP, "FMA in jitted ranks")."""
+    n, s = 128, 256
+    r = np.random.RandomState(14)
+    j = jb.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512)
+    t = tb.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512, device="cpu")
+    scale = 0.0
+    for _ in range(2):
+        v = r.lognormal(0, 2, (n, s)) * np.where(r.rand(n, s) < 0.4, -1, 1)
+        w = r.choice([0.5, 1.0, 2.0, 3.0], size=(n, s))
+        if live_share < 1.0:
+            live = r.randint(0, int(2 * live_share * s) + 1, n)
+            live[:2] = 0
+        else:
+            live = np.full(n, s)
+        pad = np.arange(s)[None, :] >= live[:, None]
+        v[pad] = r.choice([np.nan, np.inf, -np.inf], int(pad.sum()))
+        w[pad] = 0.0
+        v, w = v.astype(np.float32), w.astype(np.float32)
+        jax.block_until_ready(j.add(v, w).state)
+        t.add(v, w)
+        scale += _abs_scale(v, w)
+    assert_state_equal(t.state, j.state, abs_scale=scale)
+    qj = np.asarray(jax.block_until_ready(jb.quantile(j.spec, j.state, jnp.asarray(QS))))
+    qt = t.get_quantile_values(QS).numpy()
+    assert np.isnan(qt[0]).all() == (live_share < 1.0)
+    np.testing.assert_allclose(qt, qj, rtol=1e-6, equal_nan=True)
+
+
 @pytest.mark.parametrize("int_bins", [False, True])
 def test_merge_merge_axis_and_merge_aligned_match_jax(int_bins):
     js, ts = _specs(n_bins=512, int_bins=int_bins)

@@ -176,6 +176,104 @@ def test_ingest_kernel_ragged(dev, s, weighted):
     _ingest_matches_plain(spec, v, koff, weighted, w if weighted else None)
 
 
+def _documented_order(spec, v, w, koff):
+    """The weighted histograms summed on the host, in f32, in the order
+    ``csrc/ingest.cu`` documents: per 32-value step of a row, each (store,
+    bin) group's mass is its lowest lane's weight plus the other members'
+    in lane order, and a bin adds its groups' masses step by step."""
+    idx, is_pos, is_neg, *_ = batched._keys_and_masks(spec, koff.cpu(), v.cpu())
+    idx, is_pos, is_neg = idx.numpy(), is_pos.numpy(), is_neg.numpy()
+    wn = w.cpu().numpy()
+    n, s = wn.shape
+    hist = np.zeros((2, n, spec.n_bins), np.float32)
+    for r in range(n):
+        for j0 in range(0, s, 32):
+            groups: dict = {}
+            for j in range(j0, min(j0 + 32, s)):
+                if wn[r, j] > 0 and (is_pos[r, j] or is_neg[r, j]):
+                    groups.setdefault((int(is_neg[r, j]), int(idx[r, j])), []).append(wn[r, j])
+            for (store, b), ws in groups.items():
+                mass = ws[0]
+                for x in ws[1:]:
+                    mass = np.float32(mass + x)
+                hist[store, r, b] = np.float32(hist[store, r, b] + mass)
+    return torch.from_numpy(hist[0]), torch.from_numpy(hist[1])
+
+
+def _bits_equal(a, b) -> bool:
+    return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def test_ingest_weighted_summation_order(dev):
+    """An order-sensitive weighted batch, bit for bit against the documented
+    order: a first step of 32 lanes in one bin with weights [2**24, 1, ...]
+    (lane order keeps 2**24; any other order adds the ones), then steps of
+    a 17-, a 3- and a 2-lane group over both stores, scattered across the
+    lanes, beside singletons and dead lanes, with weights 2**-20..2**20."""
+    spec = batched.SketchSpec(0.01, n_bins=512)
+    n, s = 24, 300  # two chunks a row, a ragged last step, three blocks of warps
+    r = np.random.RandomState(14)
+    pool = r.lognormal(0, 1.0, 12) * np.where(np.arange(12) % 2, -1.0, 1.0)
+    v = np.empty((n, s))
+    w = 2.0 ** r.uniform(-20, 20, (n, s))
+    for j0 in range(0, s, 32):
+        for row in range(n):
+            lanes = r.permutation(32)
+            step = np.empty(32)
+            step[lanes[:17]] = r.choice(pool)
+            step[lanes[17:20]] = r.choice(pool)
+            step[lanes[20:22]] = r.choice(pool)
+            step[lanes[22:]] = r.lognormal(0, 2.0, 10) * r.choice([-1.0, 1.0], 10)
+            step[lanes[r.randint(32)]] = np.nan
+            v[row, j0:j0 + 32] = step[: s - j0]
+            for lane, dead_w in zip(r.choice(32, 2, replace=False), (0.0, -1.0)):
+                if j0 + lane < s:
+                    w[row, j0 + lane] = dead_w
+    # Only the first step keys into 2.0's bin (2.0 * gamma**+-1 bound it).
+    near = (np.abs(v) > 1.9) & (np.abs(v) < 2.1)
+    v[near] *= 1.3
+    v[:, :32] = 2.0
+    w[:, :32] = 1.0
+    w[:, 0] = 2.0**24
+    v = torch.from_numpy(v.astype(np.float32)).to(dev)
+    w = torch.from_numpy(w.astype(np.float32)).to(dev)
+    koff = torch.full((n,), -256, dtype=torch.int32, device=dev)
+    before = kernels.ingest_histogram.weighted_launches
+    hist_pos, hist_neg, _ = kernels.ingest_histogram(spec, v, w, koff, weighted=True)
+    assert kernels.ingest_histogram.weighted_launches == before + 1
+    ref_pos, ref_neg = _documented_order(spec, v, w, koff)
+    bin2 = int(batched._keys_and_masks(spec, koff[:1].cpu(), torch.tensor([[2.0]]))[0])
+    assert bool((ref_pos[:, bin2] == 2.0**24).all())
+    assert _bits_equal(hist_pos, ref_pos) and _bits_equal(hist_neg, ref_neg)
+
+
+@pytest.mark.parametrize("mapping", ["logarithmic", "cubic_interpolated"])
+def test_ingest_kernel_padded_batch(dev, mapping):
+    """A ragged batch padded to a fixed width, as users send one: per-row
+    live counts drawn from 0..256, the rest weight 0 over NaN and +-inf.
+    Equal to the plain version to rtol 1e-5, bit-identical on a second
+    launch, and bit for bit the documented summation order."""
+    spec = batched.SketchSpec(0.01, mapping_name=mapping, n_bins=512)
+    n, s = 300, 256
+    r = np.random.RandomState(15)
+    v = r.lognormal(0, 2, (n, s)) * np.where(r.rand(n, s) < 0.4, -1, 1)
+    w = r.rand(n, s) * 2.0
+    live = r.randint(0, s + 1, n)
+    live[:3] = (0, s, 1)
+    pad = np.arange(s)[None, :] >= live[:, None]
+    v[pad] = r.choice([np.nan, np.inf, -np.inf], int(pad.sum()))
+    w[pad] = 0.0
+    v = torch.from_numpy(v.astype(np.float32)).to(dev)
+    w = torch.from_numpy(w.astype(np.float32)).to(dev)
+    koff = torch.randint(-320, -192, (n,), device=dev, dtype=torch.int32)
+    before = kernels.ingest_histogram.weighted_launches
+    _ingest_matches_plain(spec, v, koff, True, w)
+    assert kernels.ingest_histogram.weighted_launches == before + 2
+    hist_pos, hist_neg, _ = kernels.ingest_histogram(spec, v, w, koff, weighted=True)
+    ref_pos, ref_neg = _documented_order(spec, v, w, koff)
+    assert _bits_equal(hist_pos, ref_pos) and _bits_equal(hist_neg, ref_neg)
+
+
 def _state(spec, n, seed, dev, mixed):
     r = np.random.RandomState(seed)
     v = r.lognormal(0, 1.5, (n, 256))
