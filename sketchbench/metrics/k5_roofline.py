@@ -1,0 +1,16 @@
+"""K5 (``csrc/overlap.cu``): its byte-bound time over its device time, in
+percent, over the traced queries.  Bytes: one 128-bin tile per distinct
+crossing tile of a stream's ranks, the per-stream operand and the answers,
+counted on the input of the last traced query
+(``yardstick/kernel_bytes.py``)."""
+
+KERNEL = "overlap_kernel"
+
+
+def read(ctx):
+    t = ctx.device_s("query", only=KERNEL)
+    n = ctx.calls.get("query", 0)
+    per_query = ctx.facts.get("k5_bytes")
+    if not t or not n or not per_query:
+        return None
+    return 100.0 * n * per_query / ctx.mem_rate / t
