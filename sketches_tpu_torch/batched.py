@@ -860,12 +860,18 @@ class BatchedDDSketch:
         self._rows_done = 0
 
     # -- ingest --------------------------------------------------------------
-    def _add_recentering(self, st, values, weights, mask):
+    def _add_recentering(self, st, values, weights, mask, spans=None):
         """Derive offsets from this batch, recenter the masked streams,
-        ingest with the plain add -- the first batch's path."""
+        ingest with the plain add -- the first batch's path
+        (``ingest.recentre_s``)."""
+        if spans is not None:
+            spans.enter("ingest.recentre_s")
         offs = auto_offset(self.spec, st, values, weights)
         st = recenter(self.spec, st, torch.where(mask, offs, st.key_offset))
-        return add(self.spec, st, values, weights)
+        out = add(self.spec, st, values, weights)
+        if spans is not None:
+            spans.exit()
+        return out
 
     def add(self, values, weights=None) -> "BatchedDDSketch":
         """Ingest ``values[n_streams, S]``; returns self.  A 1-D ``values``
@@ -875,12 +881,43 @@ class BatchedDDSketch:
         ``kernel`` or ``plain``): the ``ingest_s`` span and the ingest
         counters, an ``engine.ingest`` flight-recorder event, the
         device-clocked ``ingest`` row, and the accuracy audit's reservoir
-        feed."""
+        feed.  While telemetry is armed or a torch profiler records, the
+        spans inside ``ingest_s`` name each layer (``telemetry.call_spans``):
+        the recentre, and per stream chunk its slice, K1, the fold and the
+        copy back."""
+        _p0 = telemetry.clock() if profiling._ACTIVE else None
+        with telemetry.call_spans("ingest_s") as sp:
+            values, weights, _eng, variant = self._ingest(values, weights, sp)
+            if sp is not None:
+                sp.labels = {"component": "batched", "engine": _eng}
+        if telemetry._ACTIVE:
+            telemetry.counter_inc("batched.ingest_batches")
+            # K1 serves every construction rung: count the rung label the
+            # JAX facade would pick here (no separate construction ran).
+            # The facade picks only stock or packed; literal names for the
+            # telemetry-names inventory.
+            if _eng == "kernel":
+                if variant == "packed":
+                    telemetry.counter_inc("ingest.variant.packed")
+                else:
+                    telemetry.counter_inc("ingest.variant.stock")
+        if tracing._ACTIVE:
+            tracing.record_event("engine.ingest", engine=_eng, component="batched")
+        # Device-clocked attribution after the host span closes: the span
+        # measures submission, the profiling record waits for execution.
+        if _p0 is not None:
+            profiling.record("ingest", _eng, _p0, self.state)
+        if accuracy._ACTIVE:
+            accuracy.observe_ingest(self, values, weights)
+        return self
+
+    def _ingest(self, values, weights, sp):
+        """The work of :meth:`add` -> ``(values, weights, engine, variant)``
+        as ingested; ``sp`` is the call's spans or None."""
         from sketches_tpu_torch import kernels
 
-        _t0 = telemetry.clock() if telemetry._ACTIVE else None
-        _p0 = telemetry.clock() if profiling._ACTIVE else None
         _eng = "plain"
+        variant = None
         values = torch.as_tensor(values, dtype=self.spec.dtype, device=self.device)
         if weights is not None:
             weights = torch.as_tensor(weights, dtype=self.spec.dtype, device=self.device)
@@ -904,8 +941,12 @@ class BatchedDDSketch:
             self._auto_recenter_pending = False
             self._pending_recenter_mask = None
             _eng = "recenter"
-            self._stream_op(self._add_recentering, values, weights, mask)
+            self._stream_op(
+                functools.partial(self._add_recentering, spans=sp), values, weights, mask,
+                spans=sp,
+            )
             if armed_by_policy:
+                kernels._FETCHES["add_policy"] += 1
                 st = self.state
                 self._policy_collapsed = (
                     (st.collapsed_low + st.collapsed_high).double().cpu().numpy()
@@ -945,8 +986,8 @@ class BatchedDDSketch:
                         variant = "stock"
                 _eng = "kernel"
                 self._stream_op(
-                    functools.partial(kernels.add, self.spec, variant=variant),
-                    values, weights,
+                    functools.partial(kernels.add, self.spec, variant=variant, spans=sp),
+                    values, weights, spans=sp,
                 )
             except Exception as e:
                 # The ingest kernel is lost: this facade takes the plain
@@ -956,6 +997,8 @@ class BatchedDDSketch:
                 # card only an armed fault is survived this way.
                 if not resilience.survivable(e, self.device.type == "cuda"):
                     raise
+                if sp is not None:
+                    sp.unwind()
                 self._kernel_ingest = False
                 resilience.record_downgrade(
                     f"{self._health_component}.ingest", "kernel", "plain", repr(e)
@@ -964,7 +1007,7 @@ class BatchedDDSketch:
                 try:
                     self._stream_op(
                         functools.partial(add, self.spec), values, weights,
-                        start=self._rows_done,
+                        start=self._rows_done, spans=sp,
                     )
                 except Exception as e2:
                     raise resilience.EngineUnavailable(
@@ -972,37 +1015,22 @@ class BatchedDDSketch:
                         " state may be partial"
                     ) from e2
         else:
-            self._stream_op(functools.partial(add, self.spec), values, weights)
+            self._stream_op(functools.partial(add, self.spec), values, weights, spans=sp)
         self._invalidate_plans()
-        if _t0 is not None:
-            telemetry.finish_span("ingest_s", _t0, component="batched", engine=_eng)
-            telemetry.counter_inc("batched.ingest_batches")
-            # K1 serves every construction rung: count the rung label the
-            # JAX facade would pick here (no separate construction ran).
-            # The facade picks only stock or packed; literal names for the
-            # telemetry-names inventory.
-            if _eng == "kernel":
-                if variant == "packed":
-                    telemetry.counter_inc("ingest.variant.packed")
-                else:
-                    telemetry.counter_inc("ingest.variant.stock")
-        if tracing._ACTIVE:
-            tracing.record_event("engine.ingest", engine=_eng, component="batched")
-        # Device-clocked attribution after the host span closes: the span
-        # measures submission, the profiling record waits for execution.
-        if _p0 is not None:
-            profiling.record("ingest", _eng, _p0, self.state)
-        if accuracy._ACTIVE:
-            accuracy.observe_ingest(self, values, weights)
-        return self
+        return values, weights, _eng, variant
 
     def add_validated(self, values, weights=None) -> "BatchedDDSketch":
-        """Like :meth:`add` but raises on negative weights (one host sync)."""
-        if weights is not None and bool((torch.as_tensor(weights) < 0).any()):
-            raise SketchValueError("weights must be non-negative (0 = padding)")
+        """Like :meth:`add` but raises on negative weights (one host fetch,
+        ``fetch.add_validated``)."""
+        if weights is not None:
+            from sketches_tpu_torch import kernels
+
+            kernels._FETCHES["add_validated"] += 1
+            if bool((torch.as_tensor(weights) < 0).any()):
+                raise SketchValueError("weights must be non-negative (0 = padding)")
         return self.add(values, weights)
 
-    def _stream_op(self, body, *args, start: int = 0) -> None:
+    def _stream_op(self, body, *args, start: int = 0, spans=None) -> None:
         """``state <- body(state, *args)``, chunked over streams when large.
 
         Chunked runs write each chunk's result into the state's tensors in
@@ -1010,6 +1038,8 @@ class BatchedDDSketch:
         memory stays one chunk's temporaries above the state itself.  Rows
         before ``start`` are left alone; ``self._rows_done`` counts the
         rows written so far, so a failed run can be finished from there.
+        ``spans`` (the call's spans, or None) names each chunk's slice
+        ``ingest.slice_s`` and its copy back ``ingest.copy_back_s``.
         """
         n = self.n_streams
         chunk = _stream_chunk(n, self.spec.n_bins)
@@ -1021,12 +1051,19 @@ class BatchedDDSketch:
         st = self._state
         for lo in range(start, n, chunk):
             hi = min(lo + chunk, n)
-            out = body(
-                _slice_streams(st, n, lo, hi),
-                *(_slice_streams(a, n, lo, hi) for a in args),
-            )
+            if spans is not None:
+                spans.enter("ingest.slice_s")
+            part = _slice_streams(st, n, lo, hi)
+            part_args = [_slice_streams(a, n, lo, hi) for a in args]
+            if spans is not None:
+                spans.exit()
+            out = body(part, *part_args)
+            if spans is not None:
+                spans.enter("ingest.copy_back_s")
             for f in LEAVES:
                 getattr(st, f)[lo:hi].copy_(getattr(out, f))
+            if spans is not None:
+                spans.exit()
             self._rows_done = hi
 
     def _invalidate_plans(self) -> None:
@@ -1034,7 +1071,7 @@ class BatchedDDSketch:
         self._tile_plans = {}
 
     # -- query ---------------------------------------------------------------
-    def _query_choice(self, qs_tuple: tuple, disabled: frozenset = frozenset()):
+    def _query_choice(self, qs_tuple: tuple, disabled: frozenset = frozenset(), sp=None):
         """The query dispatch -> ``(tier, fn)``: ``overlap``/``tiles``/
         ``windowed`` on the kernel path (``kernels.choose_query_engine``;
         overlap while ``kernels.overlap_enabled()`` and neither the caller
@@ -1042,7 +1079,8 @@ class BatchedDDSketch:
         128-aligned windows, else ``xla``: ``kernels.floor_quantile`` (K2
         on the card), or ``batched.quantile`` on the ``plain`` engine.
         Each plan costs one small host fetch after a state mutation and is
-        cached."""
+        cached.  ``sp`` is the query's spans (or None): the plans and the
+        route's kernel call take it."""
         from sketches_tpu_torch import kernels
 
         if self._query_disabled:
@@ -1050,14 +1088,16 @@ class BatchedDDSketch:
         spec = self.spec
         if self._kernel_query and "windowed" not in disabled:
             if self._window_plan is None:
-                self._window_plan = kernels.plan_state_window(spec, self.state)
+                self._window_plan = kernels.plan_state_window(spec, self.state, spans=sp)
             lo_w, n_w, w_t, with_neg = self._window_plan
             if "tiles" not in disabled and kernels.tile_query_eligible(
                 spec, len(qs_tuple), self._window_plan
             ):
                 plan = self._tile_plans.get(qs_tuple)
                 if plan is None:
-                    plan = kernels.plan_tile_query(spec, self.state, list(qs_tuple))
+                    plan = kernels.plan_tile_query(
+                        spec, self.state, self._qs_tensor(qs_tuple), spans=sp
+                    )
                     self._tile_plans[qs_tuple] = plan
                 k_tiles, with_neg_t = plan
                 pick = kernels.choose_query_engine(
@@ -1071,6 +1111,7 @@ class BatchedDDSketch:
                         spec,
                         k_tiles=k_tiles,
                         with_neg=with_neg_t,
+                        spans=sp,
                     )
                 if pick == "tiles":
                     return "tiles", functools.partial(
@@ -1078,20 +1119,21 @@ class BatchedDDSketch:
                         spec,
                         k_tiles=k_tiles,
                         with_neg=with_neg_t,
+                        spans=sp,
                     )
             return "windowed", functools.partial(
-                _windowed_call, spec, lo_w, n_w, w_t, with_neg
+                _windowed_call, spec, lo_w, n_w, w_t, with_neg, spans=sp
             )
         if self._wxla_ok and "wxla" not in disabled:
             if self._window_plan is None:
-                self._window_plan = kernels.plan_state_window(spec, self.state)
+                self._window_plan = kernels.plan_state_window(spec, self.state, spans=sp)
             lo_w, n_w, w_t, with_neg = self._window_plan
             return "wxla", functools.partial(
                 _wxla_call, spec, lo_w * w_t, n_w * w_t, with_neg
             )
         if self._engine_request == "plain":
             return "xla", functools.partial(quantile, spec)
-        return "xla", functools.partial(kernels.floor_quantile, spec)
+        return "xla", functools.partial(_floor_call, spec, sp)
 
     def _run_query(self, qs_tuple: tuple, disabled: frozenset = frozenset()):
         """Dispatch a query down the tier ladder -> ``(tier, values)``.
@@ -1100,30 +1142,44 @@ class BatchedDDSketch:
         facade to the next tier, recorded in ``resilience.health()``, and
         the query retries there (``resilience.demote_query``); the ``xla``
         floor re-raises, and so does a real kernel error on the card.  Queries do
-        not mutate the state, so a retry is always sound.
+        not mutate the state, so a retry is always sound.  The ``query_s``
+        span covers the whole call, plans and retries included, and the
+        spans inside it name the plans, the operands and the route kernel
+        (``telemetry.call_spans``).
         """
+        with telemetry.call_spans("query_s") as sp:
+            tier, out, _p0 = self._run_query_tiers(qs_tuple, disabled, sp)
+            if sp is not None:
+                sp.labels = {"component": "batched", "tier": tier}
+        if _p0 is not None:
+            profiling.record("query", tier, _p0, out)
+        if tracing._ACTIVE:
+            # The resolved rung, on the request's trace: the forensic
+            # answer to "which engine actually served".
+            tracing.record_event("engine.query", tier=tier, component="batched")
+        return tier, out
+
+    def _qs_tensor(self, qs_tuple: tuple) -> torch.Tensor:
+        """The device copy of a quantile list, made once: a host-to-device
+        copy waits for the stream."""
         qs = self._qs_tensors.get(qs_tuple)
         if qs is None:
             qs = torch.tensor(qs_tuple, dtype=torch.float32, device=self.device)
             self._qs_tensors[qs_tuple] = qs
+        return qs
+
+    def _run_query_tiers(self, qs_tuple: tuple, disabled: frozenset, sp):
+        qs = self._qs_tensor(qs_tuple)
         while True:
-            tier, fn = self._query_choice(qs_tuple, disabled)
+            tier, fn = self._query_choice(qs_tuple, disabled, sp)
             try:
                 if faults._ACTIVE:
                     faults.inject(faults.PALLAS_LOWERING, tier=tier)
-                _t0 = telemetry.clock() if telemetry._ACTIVE else None
                 _p0 = telemetry.clock() if profiling._ACTIVE else None
-                out = fn(self.state, qs)
-                if _t0 is not None:
-                    telemetry.finish_span("query_s", _t0, component="batched", tier=tier)
-                if _p0 is not None:
-                    profiling.record("query", tier, _p0, out)
-                if tracing._ACTIVE:
-                    # The resolved rung, on the request's trace: the
-                    # forensic answer to "which engine actually served".
-                    tracing.record_event("engine.query", tier=tier, component="batched")
-                return tier, out
+                return tier, fn(self.state, qs), _p0
             except Exception as e:
+                if sp is not None:
+                    sp.unwind()
                 if not resilience.demote_query(
                     self._health_component, self._query_disabled, tier, e,
                     self.device.type == "cuda",
@@ -1472,12 +1528,25 @@ def arrays_to_state(
     return SketchState(**{f: torch.from_numpy(host[f]).to(dev) for f in LEAVES})
 
 
-def _windowed_call(spec, lo_w, n_w, w_t, with_neg, state, qs):
+def _windowed_call(spec, lo_w, n_w, w_t, with_neg, state, qs, spans=None):
     from sketches_tpu_torch import kernels
 
     return kernels.fused_quantile_windowed(
-        spec, state, qs, lo_w, n_wblocks=n_w, w_tiles=w_t, with_neg=with_neg
+        spec, state, qs, lo_w, n_wblocks=n_w, w_tiles=w_t, with_neg=with_neg, spans=spans
     )
+
+
+def _floor_call(spec, spans, state, qs):
+    """The ``xla`` floor of the kernel engine (``kernels.floor_quantile``:
+    K2 on the card), named ``query.kernel_s`` in the query's spans."""
+    from sketches_tpu_torch import kernels
+
+    if spans is not None:
+        spans.enter("query.kernel_s")
+    out = kernels.floor_quantile(spec, state, qs)
+    if spans is not None:
+        spans.exit()
+    return out
 
 
 def _wxla_call(spec, lo_tile, n_tiles_window, with_neg, state, qs):

@@ -16,8 +16,14 @@ Each wrapper launches its kernel for tensors on a CUDA device and runs its
 plain PyTorch version (``*_plain`` beside it) for tensors on the CPU; on
 any other device it raises.  There is no fallback from a kernel to its
 plain version.  Every launch adds one to the wrapper's ``launches``
-counter (:func:`launch_counts`, :func:`reset_launch_counts`), and nothing
-else touches it.
+counter, and every host fetch on the facades' add and query paths (a
+device-to-host read, which waits for the stream) one to its site's count
+(:func:`launch_counts`, :func:`reset_launch_counts`); nothing else touches
+them.  The facade passes its call's spans (``telemetry.call_spans``, or
+``None``) to ``add``, the plans and the tile and windowed query kernels
+as ``spans=``: each names its layer inside the call (``ingest.k1_s``,
+``ingest.fold_s``, ``query.plan_window_s``, ``query.plan_tiles_s``,
+``query.operands_s``, ``query.kernel_s``).
 
 The plans (``plan_window``, ``plan_state_window``, ``plan_tile_query``,
 ``tile_query_eligible``, ``choose_query_engine``) are the JAX package's,
@@ -247,17 +253,35 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise EngineUnavailable(f"{name} launch failed with CUDA error {err}")
 
 
+#: Host fetches since the last :func:`reset_launch_counts`, by site: the
+#: device-to-host reads of the facades' add and query paths, each of which
+#: waits for the stream to drain.  ``window_stats`` and ``plan_tile_query``
+#: are the two plans' fetches, ``overlap_lists`` K5's check of its tile
+#: lists on the card, ``add_policy`` the collapse re-read of an ``add`` that
+#: recentres by ``maybe_recenter``'s policy, ``add_validated`` its weight
+#: check.
+_FETCHES = dict.fromkeys(
+    ("window_stats", "plan_tile_query", "overlap_lists", "add_policy", "add_validated"), 0
+)
+
+
 def launch_counts() -> dict:
-    """Kernel launches since the last :func:`reset_launch_counts`.  K1's
-    weighted launches are also counted apart, in
-    ``ingest_histogram.weighted_launches``."""
-    return {f.__name__: f.launches for f in _KERNEL_WRAPPERS}
+    """Kernel launches and host fetches since the last
+    :func:`reset_launch_counts`: each kernel wrapper's launches under its
+    name (K1's weighted ones also apart, in
+    ``ingest_histogram.weighted_launches``), and each host fetch site's
+    count under ``fetch.<site>`` (:data:`_FETCHES`)."""
+    counts = {f.__name__: f.launches for f in _KERNEL_WRAPPERS}
+    counts.update({"fetch." + site: n for site, n in _FETCHES.items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for f in _KERNEL_WRAPPERS:
         f.launches = 0
     ingest_histogram.weighted_launches = 0
+    for site in _FETCHES:
+        _FETCHES[site] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -371,13 +395,18 @@ def add(
     weights: Optional[torch.Tensor] = None,
     *,
     variant: Optional[str] = None,
+    spans=None,
 ) -> SketchState:
     """Drop-in replacement for ``batched.add`` through the fused ingest.
 
     The kernel emits f32 per-call deltas; they fold into the state here,
     in the state's own bin dtype.  Integer bins take unit-weight calls only
-    (their f32 deltas are exact integers below 2**24).
+    (their f32 deltas are exact integers below 2**24).  ``spans`` (the
+    facade's call spans, or None) names K1's preparation and launch
+    ``ingest.k1_s`` and the fold ``ingest.fold_s``.
     """
+    if spans is not None:
+        spans.enter("ingest.k1_s")
     v = values.to(spec.dtype).contiguous()
     if spec.bins_integer:
         if weights is not None:
@@ -396,12 +425,15 @@ def add(
         weighted=weights is not None,
         variant=choose_ingest_engine(spec, weights is not None, variant),
     )
+    if spans is not None:
+        spans.exit()
+        spans.enter("ingest.fold_s")
 
     def col(name):
         return cols[:, _COL[name]]
 
     bd = state.bins_pos.dtype
-    return SketchState(
+    out = SketchState(
         bins_pos=state.bins_pos + hist_pos.to(bd),
         bins_neg=state.bins_neg + hist_neg.to(bd),
         zero_count=state.zero_count + col("zero").to(bd),
@@ -419,6 +451,9 @@ def add(
         neg_total=state.neg_total + col("neg_total").to(bd),
         tile_sums=state.tile_sums + cols[:, _TILE0 : _TILE0 + 2 * spec.n_tiles].to(bd),
     )
+    if spans is not None:
+        spans.exit()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -571,7 +606,8 @@ def plan_window(spec: SketchSpec, occ_lo_min: int, occ_hi_max: int):
 
 def window_stats(state: SketchState):
     """(global occupied min, global occupied max, any negative mass) of a
-    state, in one host fetch."""
+    state, in one host fetch (``fetch.window_stats``)."""
+    _FETCHES["window_stats"] += 1
     glo, ghi, neg_any = torch.stack(
         [
             state.occ_lo.amin(),
@@ -582,11 +618,16 @@ def window_stats(state: SketchState):
     return int(glo), int(ghi), bool(neg_any)
 
 
-def plan_state_window(spec: SketchSpec, state: SketchState):
+def plan_state_window(spec: SketchSpec, state: SketchState, *, spans=None):
     """Window plan of a live state -> ``(lo_w, n_w, w_t, with_neg)``, with
-    one host fetch (:func:`window_stats`)."""
+    one host fetch (:func:`window_stats`); ``spans`` names it
+    ``query.plan_window_s``."""
+    if spans is not None:
+        spans.enter("query.plan_window_s")
     glo, ghi, neg_any = window_stats(state)
     lo_w, n_w, w_t = plan_window(spec, glo, ghi)
+    if spans is not None:
+        spans.exit()
     return lo_w, n_w, w_t, neg_any
 
 
@@ -616,6 +657,7 @@ def fused_quantile_windowed(
     n_wblocks: int,
     w_tiles: int = 1,
     with_neg: bool = True,
+    spans=None,
 ) -> torch.Tensor:
     """Multi-quantile query reading only the occupied bin window -> [N, Q].
 
@@ -624,6 +666,8 @@ def fused_quantile_windowed(
     occupied bin lies inside.  ``with_neg=False`` (certified by
     ``neg_total == 0``) never reads the negative store.  CUDA tensors run
     ``csrc/windowed.cu``; CPU tensors run :func:`fused_quantile_windowed_plain`.
+    ``spans`` names the packed operand ``query.operands_s`` and the kernel
+    ``query.kernel_s``.
     """
     n = state.n_streams
     if spec.bins_integer:
@@ -652,7 +696,12 @@ def fused_quantile_windowed(
     lo = min(max(int(lo_wblock), 0), max_lo)
     lo_bin = lo * w_tiles * LO
     n_tiles_win = n_wblocks * w_tiles
+    if spans is not None:
+        spans.enter("query.operands_s")
     packed = _windowed_packed(state, qs)
+    if spans is not None:
+        spans.exit()
+        spans.enter("query.kernel_s")
     if _on_cuda(packed, "fused_quantile_windowed"):
         dev = state.device
         _check(state.bins_pos, "bins_pos", torch.float32, (n, spec.n_bins), dev)
@@ -671,6 +720,8 @@ def fused_quantile_windowed(
         out = fused_quantile_windowed_plain(
             spec, state, packed, lo_bin, n_tiles_win, with_neg, q_total
         )
+    if spans is not None:
+        spans.exit()
     # Validity (q in [0, 1], non-empty stream) applies outside the kernel.
     return torch.where(_valid(state, qs), out, float("nan"))
 
@@ -934,14 +985,19 @@ def _block_tile_lists(bits_pos, bits_neg, n_tiles, bn, k_tiles):
     return compact(bits_pos), compact(bits_neg)
 
 
-def plan_tile_query(spec: SketchSpec, state: SketchState, qs, bn: Optional[int] = None) -> tuple:
+def plan_tile_query(
+    spec: SketchSpec, state: SketchState, qs, bn: Optional[int] = None, *, spans=None
+) -> tuple:
     """Host-side plan of the tile-list query -> ``(k_tiles, with_neg)``.
 
     ``k_tiles`` is the largest per-stream-block union of needed tiles (per
     store), rounded up to a power of two -- the JAX package's routing input
     (``choose_query_engine`` compares it with the window span).  One host
-    fetch.
+    fetch (``fetch.plan_tile_query``); ``spans`` names the plan
+    ``query.plan_tiles_s``.
     """
+    if spans is not None:
+        spans.enter("query.plan_tiles_s")
     qs = _as_qs(qs, state.device)
     if bn is None:
         bn = _stream_block(state.n_streams)
@@ -952,12 +1008,15 @@ def plan_tile_query(spec: SketchSpec, state: SketchState, qs, bn: Optional[int] 
     def max_union(bits):
         return _bit_planes(_block_or(bits, bn), spec.n_tiles).sum(-1).amax()
 
+    _FETCHES["plan_tile_query"] += 1
     k_pos, k_neg, neg_any = torch.stack(
         [max_union(bits_pos), max_union(bits_neg), (state.neg_total > 0).any().to(torch.int64)]
     ).tolist()
     with_neg = bool(neg_any)
     k = max(k_pos, k_neg if with_neg else 0, 1)
     k_tiles = 1 << (k - 1).bit_length()
+    if spans is not None:
+        spans.exit()
     return min(k_tiles, spec.n_tiles), with_neg
 
 
@@ -1003,6 +1062,7 @@ def fused_quantile_tiles(
     *,
     k_tiles: int,
     with_neg: bool = True,
+    spans=None,
 ) -> torch.Tensor:
     """Hierarchical multi-quantile query -> [N, Q] final values.
 
@@ -1011,6 +1071,8 @@ def fused_quantile_tiles(
     validated as in the JAX package; ``with_neg=False`` (certified by
     ``neg_total == 0``) never reads the negative store.  CUDA tensors run
     ``csrc/tiles.cu``; CPU tensors run :func:`fused_quantile_tiles_plain`.
+    ``spans`` names the packed operand ``query.operands_s`` and the kernel
+    ``query.kernel_s``.
     """
     n = state.n_streams
     t = spec.n_tiles
@@ -1027,21 +1089,29 @@ def fused_quantile_tiles(
         return torch.zeros((n, 0), dtype=torch.float32, device=state.device)
     if not 1 <= k_tiles <= t:
         raise SpecError(f"k_tiles={k_tiles} outside [1, {t}]")
+    if spans is not None:
+        spans.enter("query.operands_s")
     packed = _tiles_packed(spec, state, qs)
+    if spans is not None:
+        spans.exit()
+        spans.enter("query.kernel_s")
     if not _on_cuda(packed, "fused_quantile_tiles"):
-        return fused_quantile_tiles_plain(spec, state, packed, with_neg, q_total)
-    dev = state.device
-    _check(state.bins_pos, "bins_pos", torch.float32, (n, spec.n_bins), dev)
-    if with_neg:
-        _check(state.bins_neg, "bins_neg", torch.float32, (n, spec.n_bins), dev)
-    out = torch.empty((n, q_total), dtype=torch.float32, device=dev)
-    _launch(
-        "sk_tiles", dev,
-        _ptr(state.bins_pos), _ptr(state.bins_neg) if with_neg else None,
-        _ptr(packed), _ptr(out), _ptr(_mapping_consts(spec.mapping, dev)),
-        spec.mapping.kernel_id, n, spec.n_bins, q_total, packed.shape[1],
-    )
-    fused_quantile_tiles.launches += 1
+        out = fused_quantile_tiles_plain(spec, state, packed, with_neg, q_total)
+    else:
+        dev = state.device
+        _check(state.bins_pos, "bins_pos", torch.float32, (n, spec.n_bins), dev)
+        if with_neg:
+            _check(state.bins_neg, "bins_neg", torch.float32, (n, spec.n_bins), dev)
+        out = torch.empty((n, q_total), dtype=torch.float32, device=dev)
+        _launch(
+            "sk_tiles", dev,
+            _ptr(state.bins_pos), _ptr(state.bins_neg) if with_neg else None,
+            _ptr(packed), _ptr(out), _ptr(_mapping_consts(spec.mapping, dev)),
+            spec.mapping.kernel_id, n, spec.n_bins, q_total, packed.shape[1],
+        )
+        fused_quantile_tiles.launches += 1
+    if spans is not None:
+        spans.exit()
     return out
 
 
@@ -1146,6 +1216,7 @@ def fused_quantile_tiles_overlap(
     with_neg: bool = True,
     block_streams: int = 0,
     lookahead: int = 8,
+    spans=None,
 ) -> torch.Tensor:
     """Tile-list multi-quantile query walked through a copy ring -> [N, Q].
 
@@ -1159,7 +1230,9 @@ def fused_quantile_tiles_overlap(
     prefetch distance, capped at its 4-slot ring), and folds each tile only
     into the ranks that target it.  CUDA tensors run
     ``csrc/overlap.cu``; CPU tensors run
-    :func:`fused_quantile_tiles_overlap_plain`.
+    :func:`fused_quantile_tiles_overlap_plain`.  ``spans`` names the tile
+    lists, the packed operand and their check ``query.operands_s`` and the
+    kernel ``query.kernel_s``.
     """
     n = state.n_streams
     t = spec.n_tiles
@@ -1183,36 +1256,47 @@ def fused_quantile_tiles_overlap(
         raise SpecError(f"lookahead={lookahead} must be >= 1")
     n_steps = (2 if with_neg else 1) * k_tiles
     depth = _overlap_depth(n_steps, lookahead)
+    if spans is not None:
+        spans.enter("query.operands_s")
     lists_pos, lists_neg, packed = _tile_query_operands(spec, state, qs, bn, k_tiles)
-    if not _on_cuda(packed, "fused_quantile_tiles_overlap"):
-        return fused_quantile_tiles_overlap_plain(
+    on_cuda = _on_cuda(packed, "fused_quantile_tiles_overlap")
+    if on_cuda:
+        if _overlap_smem_bytes(depth, q_total, packed.shape[1]) > _SMEM_BYTES:
+            raise SpecError(
+                f"Q={q_total} at ring depth {depth} needs more than the"
+                f" {_SMEM_BYTES} bytes of shared memory a block may use"
+            )
+        # CUDA reads out of bounds where the TPU's DMA faulted: every list
+        # entry must name a tile of the store (one host fetch).
+        _FETCHES["overlap_lists"] += 1
+        lists = torch.cat([lists_pos, lists_neg], dim=1) if with_neg else lists_pos
+        if bool(((lists < 0) | (lists >= t)).any()):
+            raise SketchValueError(f"a needed-tile list names a tile outside [0, {t})")
+    if spans is not None:
+        spans.exit()
+        spans.enter("query.kernel_s")
+    if not on_cuda:
+        out = fused_quantile_tiles_overlap_plain(
             spec, state, lists_pos, lists_neg, packed, bn, with_neg, q_total
         )
-    if _overlap_smem_bytes(depth, q_total, packed.shape[1]) > _SMEM_BYTES:
-        raise SpecError(
-            f"Q={q_total} at ring depth {depth} needs more than the"
-            f" {_SMEM_BYTES} bytes of shared memory a block may use"
+    else:
+        dev = state.device
+        for name in ("bins_pos",) + (("bins_neg",) if with_neg else ()):
+            _check(getattr(state, name), name, torch.float32, (n, spec.n_bins), dev)
+            _check_aligned(getattr(state, name), name)
+        _check_aligned(packed, "packed")
+        out = torch.empty((n, q_total), dtype=torch.float32, device=dev)
+        _launch(
+            "sk_overlap", dev,
+            _ptr(state.bins_pos), _ptr(state.bins_neg) if with_neg else None,
+            _ptr(lists_pos), _ptr(lists_neg) if with_neg else None,
+            _ptr(packed), _ptr(out), _ptr(_mapping_consts(spec.mapping, dev)),
+            spec.mapping.kernel_id, n, spec.n_bins, q_total, packed.shape[1],
+            bn, k_tiles, depth,
         )
-    # CUDA reads out of bounds where the TPU's DMA faulted: every list
-    # entry must name a tile of the store (one host fetch).
-    lists = torch.cat([lists_pos, lists_neg], dim=1) if with_neg else lists_pos
-    if bool(((lists < 0) | (lists >= t)).any()):
-        raise SketchValueError(f"a needed-tile list names a tile outside [0, {t})")
-    dev = state.device
-    for name in ("bins_pos",) + (("bins_neg",) if with_neg else ()):
-        _check(getattr(state, name), name, torch.float32, (n, spec.n_bins), dev)
-        _check_aligned(getattr(state, name), name)
-    _check_aligned(packed, "packed")
-    out = torch.empty((n, q_total), dtype=torch.float32, device=dev)
-    _launch(
-        "sk_overlap", dev,
-        _ptr(state.bins_pos), _ptr(state.bins_neg) if with_neg else None,
-        _ptr(lists_pos), _ptr(lists_neg) if with_neg else None,
-        _ptr(packed), _ptr(out), _ptr(_mapping_consts(spec.mapping, dev)),
-        spec.mapping.kernel_id, n, spec.n_bins, q_total, packed.shape[1],
-        bn, k_tiles, depth,
-    )
-    fused_quantile_tiles_overlap.launches += 1
+        fused_quantile_tiles_overlap.launches += 1
+    if spans is not None:
+        spans.exit()
     return out
 
 

@@ -233,7 +233,7 @@ def record(phase: str, tier: str, t0: float, sync: Any = None) -> float:
                     "name": f"{phase}/{tier}",
                     "cat": "sketches_tpu.device",
                     "ph": "X",
-                    "ts": (t0 - telemetry._epoch_pc) * 1e6,
+                    "ts": telemetry._ts_us(t0),
                     "dur": dur * 1e6,
                     "pid": telemetry.CHROME_PID_DEVICE,
                     "tid": tid,

@@ -16,7 +16,12 @@ surfaces, with the JAX package's names, formats and semantics:
   extends the inventory with :func:`declare`.
 * **Trace spans** -- :func:`span`/:func:`finish_span` record Chrome-trace
   ``X`` events (per-thread track, bounded ring, drops counted) and feed
-  the span's histogram on exit.
+  the span's histogram on exit.  :func:`call_spans` is the hot path's
+  seam: ``BatchedDDSketch.add`` and its queries open one root span and
+  name each layer inside it (:data:`CALL_SPANS`); while a
+  ``torch.profiler`` records, every span is also a
+  ``record_function`` range named ``sketches_tpu_torch.<span>``, in the
+  same trace as the kernels it launches.
 * **Exporters** -- :func:`snapshot` (JSON-safe dict, with the
   ``resilience.health()`` ledger bridged in), :func:`prometheus_text`
   (text exposition; histograms as summaries), :func:`chrome_trace` (host
@@ -29,7 +34,10 @@ start; :func:`enable` / :func:`disable` arm programmatically.  Every
 instrumented seam guards on ``telemetry._ACTIVE``, so the disarmed layer
 costs one attribute read + bool test per dispatch -- no clock read, no
 allocation, no device synchronize (the booby-trap test in
-``tests/test_torch_telemetry.py`` proves it).  :func:`clock` and
+``tests/test_torch_telemetry.py`` proves it).  A :func:`call_spans` seam
+is on while the layer is armed or a torch profiler records; off, it
+costs one bool and one profiler check per call and one ``None`` test per
+inner span.  :func:`clock` and
 :func:`wall_time` are the port's one clock boundary: the resilience
 ledger, the flight recorder, profiling and the accuracy audit read time
 through them.
@@ -52,14 +60,20 @@ re-reservoir, drops counted), :func:`prometheus_text` annotates quantile
 lines OpenMetrics-style, and :func:`exemplars_for` answers "which traces
 sit behind this histogram's p99 bin".
 
-CLI: ``python -m sketches_tpu_torch.telemetry --check-bench OLD NEW`` is
-the bench regression gate (two ``bench.py`` summary documents, metric by
-metric against per-metric thresholds; exit 1 on regression, 2 when
-nothing compares); ``--merge A.json B.json ... [--out M.json]`` folds
-snapshot files; ``--check-slo SNAPSHOT.json`` evaluates the SLO inventory
-(exit 1 on any burning SLO, 2 when nothing was evaluable);
-``--bench-snapshot BENCH.json OUT.json`` derives a snapshot from a bench
-summary's measured latencies.
+Timebase: a trace event's ``ts`` is wall-clock microseconds since the
+Unix epoch, read as ``perf_counter`` from one ``time_ns`` /
+``perf_counter_ns`` anchor taken at import, :func:`enable` and
+:func:`reset`.  A ``torch.profiler`` export stamps the same clock minus
+its ``baseTimeNanoseconds``, so the two exports overlay in Perfetto once
+that base is added back (:func:`chrome_trace` says so in its
+``otherData``).
+
+CLI: ``python -m sketches_tpu_torch.telemetry --merge A.json B.json ...
+[--out M.json]`` folds snapshot files; ``--check-slo SNAPSHOT.json``
+evaluates the SLO inventory (exit 1 on any burning SLO, 2 when nothing
+was evaluable).  The JAX package's bench gate (``--check-bench``) reads
+its own ``bench.py`` captures and has no counterpart here: the port's
+benchmark is ``sketchbench/``.
 
 Failure modes: recording against an undeclared metric name (or the wrong
 kind) raises ``SketchValueError``; a full trace ring drops the newest
@@ -77,6 +91,8 @@ import math
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 from sketches_tpu_torch.analysis import registry
 
@@ -103,18 +119,16 @@ __all__ = [
     "prometheus_text",
     "chrome_trace",
     "exemplars_for",
+    "call_spans",
+    "CALL_SPANS",
+    "PROFILER_PREFIX",
     "CHROME_PID_SPANS",
     "CHROME_PID_DEVICE",
     "EXEMPLARS_PER_BIN",
     "EXEMPLAR_BINS",
-    "check_bench",
-    "capture_class",
-    "capture_mismatch",
-    "find_comparable_pair",
     "SLO",
     "SLOS",
     "check_slo",
-    "snapshot_from_bench",
     "main",
 ]
 
@@ -382,7 +396,49 @@ _DECLARED = (
            "Replica staleness observed at serve time (serving-clock"
            " seconds since the replica's ledgered sync), recorded per"
            " replica-served read (label: tenant)."),
+    # The port's own: the layers inside a facade ingest and query
+    # (call_spans).  Each feeds its histogram once a call, with the sum
+    # over the call's chunks (label: component).
+    Metric("ingest.recentre_s", "histogram", "sketches_tpu_torch.batched",
+           "First-batch ingest: window offsets from the batch, recentre"
+           " and the plain add, summed over the call's stream chunks."),
+    Metric("ingest.slice_s", "histogram", "sketches_tpu_torch.batched",
+           "Slicing the state and the operands into stream chunks,"
+           " summed over an ingest call's chunks."),
+    Metric("ingest.k1_s", "histogram", "sketches_tpu_torch.kernels",
+           "K1's operand preparation and ingest_histogram launch, summed"
+           " over an ingest call's chunks."),
+    Metric("ingest.fold_s", "histogram", "sketches_tpu_torch.kernels",
+           "Folding K1's per-chunk deltas into the state leaves, summed"
+           " over an ingest call's chunks."),
+    Metric("ingest.copy_back_s", "histogram", "sketches_tpu_torch.batched",
+           "Copying each chunk's folded leaves back into the state,"
+           " summed over an ingest call's chunks."),
+    Metric("query.plan_window_s", "histogram", "sketches_tpu_torch.kernels",
+           "plan_state_window: the occupied-window plan and its host"
+           " fetch."),
+    Metric("query.plan_tiles_s", "histogram", "sketches_tpu_torch.kernels",
+           "plan_tile_query: the tile targets, the needed-tile bound and"
+           " its host fetch."),
+    Metric("query.operands_s", "histogram", "sketches_tpu_torch.kernels",
+           "The route kernel's per-stream operands (tile lists, packed"
+           " thresholds) and their checks."),
+    Metric("query.kernel_s", "histogram", "sketches_tpu_torch.kernels",
+           "The route kernel's launch (K2, K3, the tile kernel or K5)."),
 )
+
+#: The spans :func:`call_spans` opens inside a facade's ``add`` (``ingest_s``)
+#: and query (``query_s``), from the call down: the first batch's recentre,
+#: then per stream chunk its slice, K1, the fold and the copy back; the two
+#: plans, the operands and the route kernel.
+CALL_SPANS = (
+    "ingest.recentre_s", "ingest.slice_s", "ingest.k1_s", "ingest.fold_s",
+    "ingest.copy_back_s", "query.plan_window_s", "query.plan_tiles_s",
+    "query.operands_s", "query.kernel_s",
+)
+
+#: Prefix of the port's ranges in a ``torch.profiler`` trace.
+PROFILER_PREFIX = "sketches_tpu_torch."
 
 #: Every declared metric by name (static inventory + runtime
 #: :func:`declare` extensions).
@@ -397,12 +453,30 @@ _lock = threading.Lock()
 #: doing any telemetry work, so the disarmed layer costs one bool test.
 _ACTIVE = registry.enabled(registry.TELEMETRY)
 
-# Trace timebase: ts fields are microseconds since this process epoch.
-# The two module-level clock reads below (and the clock()/wall_time()
-# bodies) are the ONLY wall-clock reads in the package -- the
-# determinism rule's telemetry.py carve-out covers exactly this file.
-_epoch_pc = time.perf_counter()
-_epoch_wall = time.time()
+# Trace timebase: ts fields are wall-clock microseconds since the Unix
+# epoch, the profiler's clock (see the module docstring).  _anchor() and
+# the clock()/wall_time() bodies are the ONLY clock reads in the package
+# -- the determinism rule's telemetry.py carve-out covers exactly this
+# file.
+_anchor_wall_us = 0.0
+_anchor_pc = 0.0
+
+
+def _anchor() -> None:
+    """Pair the wall clock with ``perf_counter`` (at import, enable, reset)."""
+    global _anchor_wall_us, _anchor_pc
+    pc_ns = time.perf_counter_ns()
+    wall_ns = time.time_ns()
+    _anchor_wall_us = wall_ns / 1e3
+    _anchor_pc = pc_ns / 1e9
+
+
+def _ts_us(t: float) -> float:
+    """A :func:`clock` reading as wall-clock microseconds since the epoch."""
+    return _anchor_wall_us + (t - _anchor_pc) * 1e6
+
+
+_anchor()
 
 _MAX_EVENTS = 65536
 
@@ -511,6 +585,7 @@ def enable(on: bool = True) -> None:
     """
     global _ACTIVE
     _ACTIVE = bool(on)
+    _anchor()
     _tracing()._sync(_ACTIVE)
 
 
@@ -537,6 +612,7 @@ def reset() -> None:
         _events.clear()
         _tids.clear()
         _events_dropped = 0
+    _anchor()
 
 
 # ---------------------------------------------------------------------------
@@ -820,7 +896,7 @@ def finish_span(name: str, t0: float, trace=None, **labels) -> float:
                 "name": name,
                 "cat": "sketches_tpu",
                 "ph": "X",
-                "ts": (t0 - _epoch_pc) * 1e6,
+                "ts": _ts_us(t0),
                 "dur": dur * 1e6,
                 "pid": CHROME_PID_SPANS,
                 "tid": _tid(),
@@ -879,6 +955,112 @@ def span(name: str, **labels):
     return _Span(name, labels)
 
 
+class _NoopCall:
+    """The off state of :func:`call_spans`: ``with`` binds ``None``."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NOOP_CALL = _NoopCall()
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class _CallSpans:
+    """The spans of one call: its root span and the layers inside it.
+
+    :meth:`enter` / :meth:`exit` open and close a span inside the root
+    (they nest).  While a profiler records, each span is a
+    ``record_function`` range; while telemetry is armed, each inner span
+    appends one ring event and adds its duration to its name's sum, and
+    the root, on a clean exit, feeds every inner histogram once with its
+    sum and closes through :func:`finish_span` with :attr:`labels`.
+    """
+
+    __slots__ = ("root", "labels", "armed", "profiled", "_open", "_sums")
+
+    def __init__(self, root: str, profiled: bool):
+        self.root = root
+        self.labels: Dict[str, Any] = {}
+        self.armed = _ACTIVE
+        self.profiled = profiled
+        self._open: List[Tuple[str, Any, float]] = []
+        self._sums: Dict[str, float] = {}
+
+    def __enter__(self) -> "_CallSpans":
+        self.enter(self.root)
+        return self
+
+    def enter(self, name: str) -> None:
+        rf = None
+        if self.profiled:
+            rf = torch.profiler.record_function(PROFILER_PREFIX + name)
+            rf.__enter__()
+        self._open.append((name, rf, clock() if self.armed else 0.0))
+
+    def exit(self) -> None:
+        name, rf, t0 = self._open.pop()
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        if self.armed:
+            dur = max(clock() - t0, 0.0)
+            self._sums[name] = self._sums.get(name, 0.0) + dur
+            with _lock:
+                _append_event(
+                    {
+                        "name": name,
+                        "cat": "sketches_tpu",
+                        "ph": "X",
+                        "ts": _ts_us(t0),
+                        "dur": dur * 1e6,
+                        "pid": CHROME_PID_SPANS,
+                        "tid": _tid(),
+                        "args": {},
+                    }
+                )
+
+    def unwind(self) -> None:
+        """Close every span left open inside the root (a raise inside a
+        layer that the caller survives)."""
+        while len(self._open) > 1:
+            self.exit()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.unwind()
+        _, rf, t0 = self._open.pop()
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        if self.armed and exc_type is None:
+            inner = {k: v for k, v in self.labels.items() if k == "component"}
+            for name, total in self._sums.items():
+                observe(name, total, **inner)
+            finish_span(self.root, t0, **self.labels)
+        return False
+
+
+def call_spans(root: str):
+    """The span seam of a hot call: ``with telemetry.call_spans("ingest_s")
+    as sp:`` binds a span recorder while spans are on, else ``None``.
+
+    Spans are on while the layer is armed or a ``torch.profiler`` records
+    (checked once, here).  The call passes ``sp`` down to its layers, which
+    test it for ``None`` before ``sp.enter(name)`` / ``sp.exit()``
+    (:data:`CALL_SPANS`) and set ``sp.labels`` for the root's histogram.
+    Off, it returns a shared no-op: no clock read, no profiler call, no
+    allocation.  Raises ``SketchValueError`` at exit for an undeclared
+    span name while armed.
+    """
+    profiled = _profiler_enabled()
+    if not (_ACTIVE or profiled):
+        return _NOOP_CALL
+    return _CallSpans(root, profiled)
+
+
 def event(name: str, **labels) -> None:
     """Record an instant: counter ``name`` += 1 plus one trace ``i`` event.
 
@@ -898,7 +1080,7 @@ def event(name: str, **labels) -> None:
                 "cat": "sketches_tpu",
                 "ph": "i",
                 "s": "t",
-                "ts": (clock() - _epoch_pc) * 1e6,
+                "ts": _ts_us(clock()),
                 "pid": CHROME_PID_SPANS,
                 "tid": _tid(),
                 "args": {k2: str(v) for k2, v in labels.items()},
@@ -1174,8 +1356,9 @@ def chrome_trace() -> dict:
     :data:`CHROME_PID_DEVICE` for the profiling layer's device track),
     with ``thread_name`` metadata on every track; spans carrying trace
     ids are additionally linked by causal flow events (``s``/``f``), so
-    Perfetto draws the request's path across threads.  An empty event
-    list is the disarmed/idle steady state.
+    Perfetto draws the request's path across threads.  ``otherData``
+    names the timebase (wall-clock microseconds, the profiler's clock).
+    An empty event list is the disarmed/idle steady state.
     """
     with _lock:
         events = list(_events)
@@ -1203,7 +1386,15 @@ def chrome_trace() -> dict:
 
     if _profiling._ACTIVE:
         all_events = all_events + _profiling.chrome_events()
-    return {"displayTimeUnit": "ms", "traceEvents": all_events}
+    return {
+        "displayTimeUnit": "ms",
+        "traceEvents": all_events,
+        "otherData": {
+            "timebase": "ts: wall-clock microseconds since the Unix epoch;"
+            " a torch.profiler export's ts plus its baseTimeNanoseconds / 1000"
+            " is on the same clock",
+        },
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1598,8 +1789,8 @@ def check_slo(
 
     Works on single-process and merged snapshots alike.  SLOs whose
     metrics are absent (or have zero total mass) are skipped -- callers
-    must treat ``n_evaluated == 0`` as a failure in its own right (the
-    ``check_bench`` convention: wrong files beat a silent pass).
+    must treat ``n_evaluated == 0`` as a failure in its own right (wrong
+    files beat a silent pass).
     """
     if slos is None:
         slos = SLOS
@@ -1677,277 +1868,9 @@ def check_slo(
     return lines, burning, evaluated
 
 
-# ---------------------------------------------------------------------------
-# Bench-derived snapshots (the checked-in SLO-gate fixture)
-# ---------------------------------------------------------------------------
-
-#: Bench summary latency fields -> (histogram metric, labels): the
-#: measured numbers a ``--bench-snapshot`` replays into sketch-backed
-#: histograms, producing a real mergeable snapshot from a checked-in
-#: BENCH document (so the SLO gate has a stable, reviewable fixture).
-_BENCH_OBSERVE: Tuple[Tuple[str, str, Tuple[Tuple[str, str], ...]], ...] = (
-    ("configs.c0_host_python.query_s", "query_s",
-     (("component", "bench"), ("tier", "host"))),
-    ("configs.c1_10k_streams.query_p50_s", "query_s",
-     (("component", "bench"), ("tier", "c1"))),
-    ("configs.c1_10k_streams.query_p99_s", "query_s",
-     (("component", "bench"), ("tier", "c1"))),
-    ("configs.c2_c4_1m_streams_cubic_collapsing.query_p50_s", "query_s",
-     (("component", "bench"), ("tier", "c2"))),
-    ("configs.c2s_shard_query_131k.worst_mixed_sign.query_sustained_s",
-     "query_s", (("component", "bench"), ("tier", "shard131k"))),
-    ("configs.c2s_shard_query_131k.wide_window.query_sustained_s",
-     "query_s", (("component", "bench"), ("tier", "shard131k"))),
-    ("configs.c2s_shard_query_131k.mid_occupancy.query_sustained_s",
-     "query_s", (("component", "bench"), ("tier", "shard131k"))),
-    ("configs.c2s_shard_query_131k.tight_telemetry.query_sustained_s",
-     "query_s", (("component", "bench"), ("tier", "shard131k"))),
-    ("configs.c2s_shard_query_131k.merge_per_shard_s", "merge_s",
-     (("component", "bench"),)),
-    ("configs.c3_distributed.cpu_mesh_8dev.psum_merge.merge_s",
-     "distributed.fold_s", ()),
-    ("configs.serde_bulk.to_bytes_s", "wire.encode_s", ()),
-    ("configs.serde_bulk.from_bytes_s", "wire.decode_s", ()),
-)
-
-
-def snapshot_from_bench(bench_doc: dict) -> dict:
-    """Derive a mergeable snapshot from a ``bench.py`` summary document.
-
-    Each known latency field (:data:`_BENCH_OBSERVE`) is observed into
-    the matching sketch-backed histogram, so the result is a REAL
-    snapshot -- mergeable, SLO-checkable -- whose distributions are the
-    bench's measured numbers.  Raises ``SketchValueError`` when the
-    document carries none of the known fields (wrong file).
-    """
-    hists: Dict[_Key, _Hist] = {}
-    observed = 0
-    for path, metric, labels in _BENCH_OBSERVE:
-        v = _lookup(bench_doc, path)
-        if v is None:
-            continue
-        k = _key(metric, dict(labels))
-        h = hists.get(k)
-        if h is None:
-            h = hists[k] = _Hist()
-        h.add(float(v))
-        observed += 1
-    if not observed:
-        _raise_value_error(
-            "bench document carries no known latency field; expected a"
-            " bench.py summary (e.g. BENCH_local_r05.json)"
-        )
-    return {
-        "enabled": False,
-        "histogram_relative_accuracy": HISTOGRAM_REL_ACC,
-        "counters": {},
-        "gauges": {},
-        "histograms": {_render_key(k): h.summary() for k, h in hists.items()},
-        "spans": {"n_events": 0, "dropped": 0},
-        "resilience": {
-            "tiers": {}, "counters": {}, "downgrades": [],
-            "downgrades_dropped": 0,
-        },
-        "derived_from": "bench",
-    }
-
-
-# ---------------------------------------------------------------------------
-# Bench regression gate
-# ---------------------------------------------------------------------------
-
-#: (dot.path into the bench summary document, direction, tolerance).
-#: ``higher`` metrics regress when new < old * (1 - tol); ``lower``
-#: (latency) metrics regress when new > old * (1 + tol).  Tolerances are
-#: per-metric noise budgets: device-sustained rates are tight, host-timed
-#: loops (Python/serde) breathe more run to run.
-BENCH_GATE: Tuple[Tuple[str, str, float], ...] = (
-    ("value", "higher", 0.15),
-    ("configs.c0_host_python.add_per_s", "higher", 0.30),
-    ("configs.c0_host_native.add_per_s", "higher", 0.30),
-    ("configs.c0_jax_scalar.add_per_s", "higher", 0.30),
-    ("configs.c0_jax_scalar.add_many_per_s", "higher", 0.30),
-    ("configs.c1_10k_streams.ingest_fused_per_s", "higher", 0.15),
-    ("configs.c1_10k_streams.ingest_dispatch_per_s", "higher", 0.15),
-    ("configs.c1_10k_streams.query_p50_s", "lower", 0.30),
-    ("configs.c2_c4_1m_streams_cubic_collapsing.ingest_fused_per_s",
-     "higher", 0.15),
-    ("configs.c2_c4_1m_streams_cubic_collapsing"
-     ".ingest_fused_per_s_floorsub_batch512", "higher", 0.15),
-    ("configs.c2_c4_1m_streams_cubic_collapsing"
-     ".ingest_fused_per_s_floorsub_batch256", "higher", 0.15),
-    # Per-construction-rung floor-subtracted ingest (present only in
-    # captures that ran the ingest-variant bench).
-    ("configs.ingest_variants.variants.stock.fused_floorsub_per_s",
-     "higher", 0.20),
-    ("configs.ingest_variants.variants.packed.fused_floorsub_per_s",
-     "higher", 0.20),
-    ("configs.c2s_shard_query_131k.worst_mixed_sign.query_sustained_s",
-     "lower", 0.30),
-    ("configs.c2s_shard_query_131k.tight_telemetry.query_sustained_s",
-     "lower", 0.30),
-    ("configs.c2s_shard_query_131k.worst_mixed_sign.device_query.p50_s",
-     "lower", 0.25),
-    ("configs.c2s_shard_query_131k.tight_telemetry.device_query.p50_s",
-     "lower", 0.25),
-    ("configs.c2s_shard_query_131k.merge_per_shard_s", "lower", 0.30),
-    ("configs.serde_bulk.to_bytes_s", "lower", 0.40),
-    ("configs.serde_bulk.from_bytes_s", "lower", 0.40),
-    # Windowed query latency: host-timed fused dispatches, so they
-    # breathe like the serde rows.
-    ("configs.windowed.window_query_p50_s", "lower", 0.40),
-    ("configs.windowed.window_query_vs_single_floorsub", "lower", 0.40),
-    # Serve fabric (r21): host-timed fabric reads + failover blackout --
-    # small host-clock numbers, so they get the serde-class tolerance.
-    ("configs.serve_fabric.qps_vs_hosts.h4.warm_cache_qps",
-     "higher", 0.40),
-    ("configs.serve_fabric.qps_vs_hosts.h4.uncached_query_p50_s",
-     "lower", 0.40),
-    ("configs.serve_fabric.failover.blackout_s", "lower", 0.60),
-)
-
-
-def _lookup(doc: Any, path: str) -> Optional[float]:
-    cur = doc
-    for part in path.split("."):
-        if not isinstance(cur, dict):
-            return None
-        cur = cur.get(part)
-    return cur if isinstance(cur, (int, float)) else None
-
-
-def capture_class(doc: dict) -> Dict[str, Optional[str]]:
-    """The comparability fingerprint of a bench document.
-
-    Two captures are comparable only when they ran on the same device
-    class AND (when both declare it) the same default ingest
-    construction rung -- a CPU-container capture compared against an
-    accelerator capture regresses every device metric for a reason that
-    has nothing to do with the code.  The classes are the JAX package's
-    (``tpu`` / ``cpu``), so both packages judge one capture alike.
-    """
-    device = doc.get("device")
-    dev_class: Optional[str] = None
-    if isinstance(device, str) and device:
-        dev_class = "tpu" if "tpu" in device.lower() else "cpu"
-    variant = doc.get("ingest_variant")
-    return {
-        "device_class": dev_class,
-        "ingest_variant": variant if isinstance(variant, str) else None,
-    }
-
-
-def capture_mismatch(old_doc: dict, new_doc: dict) -> Optional[str]:
-    """A named refusal reason when two bench documents are not
-    comparable, else None.  Fields absent from either side (older
-    captures predate the stamps) never refuse."""
-    old_c, new_c = capture_class(old_doc), capture_class(new_doc)
-    for key in ("device_class", "ingest_variant"):
-        a, b = old_c[key], new_c[key]
-        if a is not None and b is not None and a != b:
-            return (
-                f"cross-{key.replace('_', '-')} comparison:"
-                f" old={a!r} new={b!r} -- device-sustained metrics are"
-                " not comparable across capture classes"
-            )
-    return None
-
-
-def check_bench(
-    old_doc: dict, new_doc: dict, tolerance: Optional[float] = None
-) -> Tuple[List[str], int, int]:
-    """Compare two bench summary documents -> (report lines, n_regressed,
-    n_compared).
-
-    Walks :data:`BENCH_GATE`; metrics absent from either document are
-    skipped (configs legitimately come and go), so callers must treat
-    ``n_compared == 0`` as a failure in its own right -- two
-    wrong-shaped files would otherwise "pass" vacuously.  Documents of
-    different capture classes (:func:`capture_mismatch`) are REFUSED
-    with a named reason line and ``compared == 0`` -- never silently
-    compared, never silently passed.
-    """
-    lines: List[str] = []
-    regressed = compared = 0
-    reason = capture_mismatch(old_doc, new_doc)
-    if reason is not None:
-        return [f"  REFUSED  {reason}"], 0, 0
-    for path, direction, tol in BENCH_GATE:
-        if tolerance is not None:
-            tol = tolerance
-        old = _lookup(old_doc, path)
-        new = _lookup(new_doc, path)
-        if old is None or new is None or old == 0:
-            continue
-        compared += 1
-        ratio = new / old
-        if direction == "higher":
-            bad = ratio < 1.0 - tol
-            arrow = "throughput"
-        else:
-            bad = ratio > 1.0 + tol
-            arrow = "latency"
-        verdict = "REGRESSED" if bad else "ok"
-        if bad:
-            regressed += 1
-        lines.append(
-            f"{verdict:>9}  {path}: {old:g} -> {new:g}"
-            f" (x{ratio:.3f}, {arrow}, tol {tol:.0%})"
-        )
-    return lines, regressed, compared
-
-
 def _load_json(path: str) -> dict:
     with open(path, "r", encoding="utf-8") as f:
         return json.load(f)
-
-
-def _round_of(path: str) -> int:
-    """The rNN round number encoded in a bench capture filename (-1 when
-    absent; lexicographic order then breaks ties)."""
-    import os
-    import re
-
-    m = re.search(r"r(\d+)", os.path.basename(path))
-    return int(m.group(1)) if m else -1
-
-
-def find_comparable_pair(
-    paths: List[str],
-) -> Tuple[Optional[str], Optional[str], str]:
-    """The newest checked-in bench capture plus the newest OLDER capture
-    of the same class -> ``(old_path, new_path, reason)``.
-
-    The trajectory keeps growing, so the gate walks backward from
-    the newest capture to the first predecessor :func:`capture_mismatch`
-    accepts.  ``old_path`` is None when no predecessor is comparable
-    (first capture of a new device class / construction rung) -- the
-    caller reports ``reason`` and treats the gate as vacuous-by-name,
-    not silently green.
-    """
-    ranked = sorted(paths, key=lambda p: (_round_of(p), p))
-    if not ranked:
-        return None, None, "no bench captures found"
-    new_path = ranked[-1]
-    try:
-        new_doc = _load_json(new_path)
-    except (OSError, ValueError) as e:
-        return None, new_path, f"unreadable newest capture {new_path}: {e}"
-    reasons = []
-    for cand in reversed(ranked[:-1]):
-        try:
-            cand_doc = _load_json(cand)
-        except (OSError, ValueError) as e:
-            reasons.append(f"{cand}: unreadable ({e})")
-            continue
-        mismatch = capture_mismatch(cand_doc, new_doc)
-        if mismatch is None:
-            return cand, new_path, f"comparing {cand} -> {new_path}"
-        reasons.append(f"{cand}: {mismatch}")
-    detail = "; ".join(reasons) if reasons else "no older capture exists"
-    return None, new_path, (
-        f"no capture comparable with {new_path}: {detail}"
-    )
 
 
 def _slo_forensics(
@@ -1998,42 +1921,19 @@ def _dump_json(doc: dict, path: Optional[str]) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """CLI entry point: bench regression gate, snapshot merge, SLO gate,
-    bench-derived snapshots, and process snapshot dumps.
+    """CLI entry point: snapshot merge, SLO gate, and process snapshot
+    dumps.
 
-    Exit codes: 0 clean, 1 on any regressed metric / burning SLO, 2 when
-    nothing was comparable or evaluable (wrong files must not pass
+    Exit codes: 0 clean, 1 on any burning SLO, 2 when nothing was
+    evaluable or no action was asked for (wrong files must not pass
     silently).
     """
     import argparse
 
     parser = argparse.ArgumentParser(
         prog="python -m sketches_tpu_torch.telemetry",
-        description="telemetry utilities: bench regression gate, snapshot"
-        " merge (fleet aggregation), SLO gate, snapshot dumps",
-    )
-    parser.add_argument(
-        "--check-bench",
-        nargs=2,
-        metavar=("OLD", "NEW"),
-        help="compare two bench.py summary JSONs (e.g. BENCH_local_r04.json"
-        " BENCH_local_r05.json); non-zero exit on regression",
-    )
-    parser.add_argument(
-        "--check-bench-latest",
-        nargs="*",
-        metavar="PATH",
-        default=None,
-        help="gate the newest checked-in bench capture against its newest"
-        " COMPARABLE predecessor (same device class + ingest variant;"
-        " defaults to BENCH_local_r*.json in the working directory) --"
-        " replaces the pinned-pair invocation as the trajectory grows",
-    )
-    parser.add_argument(
-        "--tolerance",
-        type=float,
-        default=None,
-        help="override every per-metric tolerance with one fraction",
+        description="telemetry utilities: snapshot merge (fleet"
+        " aggregation), SLO gate, snapshot dumps",
     )
     parser.add_argument(
         "--merge",
@@ -2051,14 +1951,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="evaluate the declared SLO inventory (telemetry.SLOS) against"
         " a snapshot JSON; exit 1 on any burning SLO, 2 if nothing was"
         " evaluable",
-    )
-    parser.add_argument(
-        "--bench-snapshot",
-        nargs=2,
-        metavar=("BENCH", "OUT"),
-        default=None,
-        help="derive a mergeable snapshot from a bench.py summary's"
-        " measured latencies and write it to OUT",
     )
     parser.add_argument(
         "--out",
@@ -2089,12 +1981,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         with open(args.prometheus, "w", encoding="utf-8") as f:
             f.write(prometheus_text())
 
-    if args.bench_snapshot:
-        acted = True
-        bench_path, out_path = args.bench_snapshot
-        _dump_json(snapshot_from_bench(_load_json(bench_path)), out_path)
-        print(f"bench-snapshot: {bench_path} -> {out_path}")
-
     if args.merge:
         acted = True
         merged = merge_snapshots(*[_load_json(p) for p in args.merge])
@@ -2122,57 +2008,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"check-slo: {evaluated} SLO(s) within budget")
         return 0
 
-    if args.check_bench_latest is not None:
-        import glob as _glob
-
-        paths = list(args.check_bench_latest) or sorted(
-            _glob.glob("BENCH_local_r*.json")
-        )
-        old_path, new_path, reason = find_comparable_pair(paths)
-        if old_path is None:
-            # Named vacuous pass: the first capture of a new device
-            # class / construction rung has nothing comparable behind
-            # it; say exactly why instead of exit-2 ambiguity.
-            print(f"check-bench-latest: gate vacuous -- {reason}")
-            return 0
-        print(f"check-bench-latest: {reason}")
-        args.check_bench = [old_path, new_path]
-
-    if not args.check_bench:
-        if acted:
-            return 0
-        parser.print_usage()
-        return 2
-
-    old_path, new_path = args.check_bench
-    old_doc = _load_json(old_path)
-    new_doc = _load_json(new_path)
-    lines, regressed, compared = check_bench(
-        old_doc, new_doc, tolerance=args.tolerance
-    )
-    for line in lines:
-        print(line)
-    if compared == 0:
-        if any("REFUSED" in line for line in lines):
-            # The named cross-capture refusal: the reason
-            # is already printed; the exit stays non-zero so a CI pair
-            # pinned across capture classes fails loudly, not vacuously.
-            print(
-                "check-bench: REFUSED cross-capture comparison (see the"
-                " named reason above); pick captures of one class or use"
-                " --check-bench-latest"
-            )
-            return 2
-        print(
-            "check-bench: no comparable metric between the two documents"
-            " (wrong files?)"
-        )
-        return 2
-    if regressed:
-        print(f"check-bench: {regressed}/{compared} metric(s) REGRESSED")
-        return 1
-    print(f"check-bench: {compared} metric(s) within tolerance")
-    return 0
+    if acted:
+        return 0
+    parser.print_usage()
+    return 2
 
 
 if __name__ == "__main__":

@@ -47,6 +47,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _launched(counts: dict) -> int:
+    """Kernel launches in a ``kernels.launch_counts()`` dict (its
+    ``fetch.*`` keys count host fetches, not launches)."""
+    return sum(v for k, v in counts.items() if not k.startswith("fetch."))
+
+
 def _unexpected_downgrades() -> list:
     """The ledger's downgrades but the native kill switch's, which a caller
     turns on deliberately and which is recorded as such."""
@@ -519,6 +525,49 @@ def test_facade_routes_through_kernels(dev):
     tier, again = sk.get_quantile_values_resolved(qs, disabled_tiers=("overlap",))
     assert tier == "windowed" and kernels.launch_counts()["fused_quantile_windowed"] == 1
     assert torch.equal(vals, again)
+
+
+def test_steady_add_never_syncs_and_a_query_syncs_once_a_fetch(dev, monkeypatch):
+    """At a chunked size (4 chunks), a steady-state ``add`` runs with no
+    host sync (sync debug mode ``error``), and the syncs of a query on the
+    ``overlap`` route, counted under ``warn``, equal its ``fetch.*`` delta:
+    every host wait of the query is a counted fetch."""
+    import warnings
+
+    monkeypatch.setattr(batched, "_CHUNK_ELEMS", 1 << 19)
+    n = 4096
+    sk = batched.BatchedDDSketch(n, relative_accuracy=0.01, n_bins=512)
+    assert batched._stream_chunk(n, 512) == 1024
+    r = np.random.RandomState(7)
+    v = torch.from_numpy(r.lognormal(0, 2, (n, 256)).astype(np.float32)).to(dev)
+    qs = [0.5, 0.9, 0.99, 0.999]
+    sk.add(v)  # the first batch auto-centres
+    sk.add(v)
+    sk.get_quantile_values_resolved(qs)  # copies the quantile list to the card once
+    torch.cuda.synchronize(dev)
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sk.add(v)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = kernels.launch_counts()
+    assert counts["ingest_histogram"] == 4 and _launched(counts) == 4
+    assert sum(counts.values()) == 4  # and no fetch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tier, out = sk.get_quantile_values_resolved(qs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    counts = kernels.launch_counts()
+    fetches = sum(v for k, v in counts.items() if k.startswith("fetch."))
+    assert tier == "overlap" and counts["fetch.window_stats"] == 1
+    assert counts["fetch.plan_tile_query"] == counts["fetch.overlap_lists"] == 1
+    assert len(syncs) == fetches == 3, syncs
+    assert bool(torch.isfinite(out).all())
 
 
 def _pinned_facade(n, seed, device, negate=0.4):
@@ -999,7 +1048,7 @@ def test_stacked_flush_launches_k2_once_per_group(dev):
     srv.flush()
     counts = kernels.launch_counts()
     assert counts["fused_quantile"] == 1 and srv.stats()["fused_dispatches"] == 1
-    assert sum(counts.values()) == 1
+    assert _launched(counts) == 1
     for tk in tickets:
         spec, st = srv.tenant(tk.tenant).spec, srv.tenant(tk.tenant).state
         assert tk.result.tier == "xla" and not tk.result.hedged
@@ -1036,7 +1085,7 @@ def test_stacked_flush_of_mixed_stream_counts_is_one_k2_launch(dev, monkeypatch)
     kernels.reset_launch_counts()
     srv.flush()
     counts = kernels.launch_counts()
-    assert counts["fused_quantile"] == 1 and sum(counts.values()) == 1 and plain == []
+    assert counts["fused_quantile"] == 1 and _launched(counts) == 1 and plain == []
     assert srv.stats()["fused_dispatches"] == 1
     monkeypatch.undo()
     for tk in tickets:
@@ -1111,7 +1160,7 @@ def test_repeat_window_query_launches_the_ladder_kernel(dev, monkeypatch):
     assert w.agg_stats()["query_merges"] == merges
     kernels.reset_launch_counts()
     oracle = windows.oracle_quantile(w, qs, window=None)
-    assert sum(kernels.launch_counts().values()) == 0
+    assert _launched(kernels.launch_counts()) == 0
     assert torch.equal(first, oracle) and torch.equal(again, oracle)
     monkeypatch.setenv("SKETCHES_TPU_WINDOW_AGG", "0")
     full = ring()

@@ -202,18 +202,17 @@ def test_slo_gate_matches_jax(case, tmp_path, capsys):
 
 
 def test_checked_in_and_doctored_bench_snapshots_match_jax(tmp_path, capsys):
+    """The checked-in snapshot passes both packages' ``--check-slo``; one the
+    JAX package derives from a doctored bench capture burns in both (the
+    port has no bench-derived snapshots of its own)."""
     path = os.path.join(ROOT, "SNAPSHOT_bench_r05.json")
     assert tt.main(["--check-slo", path]) == jt.main(["--check-slo", path]) == 0
     with open(os.path.join(ROOT, "BENCH_local_r05.json")) as f:
         bench = json.load(f)
     bench["configs"]["serde_bulk"]["from_bytes_s"] = 500.0
-    snap = tt.snapshot_from_bench(bench)
-    assert snap == jt.snapshot_from_bench(bench)
     p = tmp_path / "burning.json"
-    p.write_text(json.dumps(snap))
-    assert tt.main(["--check-slo", str(p)]) == 1
-    with pytest.raises(tr.SketchValueError):
-        tt.snapshot_from_bench({"not": "a bench doc"})
+    p.write_text(json.dumps(jt.snapshot_from_bench(bench)))
+    assert tt.main(["--check-slo", str(p)]) == jt.main(["--check-slo", str(p)]) == 1
     capsys.readouterr()
 
 

@@ -372,9 +372,13 @@ def test_cpu_runs_launch_no_kernel_and_kernel_engine_needs_cuda():
     sk.add(np.ones((256, 128), np.float32))
     sk.add(np.ones((256, 128), np.float32))
     sk.get_quantile_values([0.5])
+    # The kernel keys launch nothing on the CPU; the facade's query planned
+    # its window (one host fetch), a single tile, so no tile plan.
     assert tk.launch_counts() == {
         "ingest_histogram": 0, "fused_quantile": 0, "fused_quantile_windowed": 0,
         "fused_quantile_tiles": 0, "fused_quantile_tiles_overlap": 0,
+        "fetch.window_stats": 1, "fetch.plan_tile_query": 0, "fetch.overlap_lists": 0,
+        "fetch.add_policy": 0, "fetch.add_validated": 0,
     }
     with pytest.raises(SpecError):
         tb.BatchedDDSketch(256, n_bins=512, device="cpu", engine="kernel")

@@ -2,8 +2,8 @@
 
 Every module of ``sketches_tpu`` has a port file (under the same name, or
 under the one ``MODULE_RENAMES`` gives), and the port module's ``__all__``
-must equal the JAX module's, apart from two explicit lists: the deliberate
-renames and the port-only additions.  The package roots are compared the
+must equal the JAX module's, apart from three explicit lists: the deliberate
+renames, the port-only additions and the JAX-only names.  The package roots are compared the
 same way; any other difference fails.  ``pyproject.toml`` lists every
 package of the port, so an installed port imports whole.
 """
@@ -76,12 +76,22 @@ PORT_ADDITIONS = {
                 "window_stats"},
     # The zero-bucket threshold both packages apply before keying.
     "mapping": {"zero_threshold"},
+    # The hot path's span seam: its spans and their profiler range prefix.
+    "telemetry": {"call_spans", "CALL_SPANS", "PROFILER_PREFIX"},
     # Where the native library is built and why it is or is not loaded.
     "native": {"library_path", "status"},
     # The protobuf classes, imported on first use.
     "pb.proto": {"messages"},
     # The ladder step and the "may this error step down" test.
     "resilience": {"demote_query", "survivable"},
+}
+
+#: Names the JAX module exports where the port does not, by module: the
+#: telemetry bench gate over the JAX package's ``bench.py`` captures (the
+#: port's benchmark is ``sketchbench/``).
+JAX_ONLY = {
+    "telemetry": {"check_bench", "capture_class", "capture_mismatch", "find_comparable_pair",
+                  "snapshot_from_bench"},
 }
 
 #: Port modules the JAX package lacks: the numpy/torch state conversion,
@@ -122,7 +132,7 @@ def test_module_all_matches_jax(name):
         assert tall is None, f"{name}: the JAX module has no __all__"
         return
     renames = RENAMES.get(name, {})
-    want = {renames.get(n, n) for n in jall}
+    want = {renames.get(n, n) for n in jall} - JAX_ONLY.get(name, set())
     got = set(tall) - PORT_ADDITIONS.get(name, set())
     assert got == want, (
         f"{name or 'root'}: the port lacks {sorted(want - got)}, adds {sorted(got - want)}"
@@ -130,8 +140,9 @@ def test_module_all_matches_jax(name):
     assert len(tall) == len(set(tall)), f"{name}: repeated names"
     for n in tall:
         assert hasattr(tmod, n), f"{name}: __all__ names {n!r}, which the module lacks"
-    # Every listed addition and rename is still in use.
+    # Every listed addition, removal and rename is still in use.
     assert PORT_ADDITIONS.get(name, set()) <= set(tall)
+    assert JAX_ONLY.get(name, set()) <= set(jall)
     assert set(renames.values()) <= set(tall)
 
 

@@ -1,20 +1,22 @@
 """The port's telemetry layer (``sketches_tpu_torch.telemetry``) and the seams
 that feed it, against the JAX package's, on the CPU.
 
-* Inventories: the declared metrics (names, kinds, merge policies, docs),
-  the SLOs, the bench gate and the four layers' public names equal JAX's.
-* Disarmed, every ported seam reads no clock, never synchronizes, and
-  records nothing (the clock, ``profiling.record``,
-  ``accuracy.observe_ingest``, ``tracing.record_event`` and
-  ``torch.cuda.synchronize`` are booby-trapped while every group of seams
-  runs, with integrity and a fault site armed).
+* Inventories: the declared metrics (names, kinds, merge policies, docs;
+  the port's own spans, ``CALL_SPANS``, after JAX's), the SLOs and the four
+  layers' public names equal JAX's, but for the JAX package's bench gate
+  and the port's span seam (``torch_obs_common``).
+* Disarmed, every ported seam reads no clock, never synchronizes, never
+  enters the profiler, and records nothing (the clock, ``profiling.record``,
+  ``accuracy.observe_ingest``, ``tracing.record_event``,
+  ``torch.cuda.synchronize``, ``record_function`` and the profiler's
+  range op are booby-trapped while every group of seams runs, and a
+  chunked facade, with integrity and a fault site armed).
 * The same observations give **equal** histogram bin states and **equal**
   ``prometheus_text`` (exemplars included, under a fixed wall clock and a
   seeded id counter); ``merge_snapshots`` of a JAX and a port snapshot is
   **equal** in both packages.
-* ``--check-bench`` gives JAX's exit codes on the checked-in
-  ``BENCH_local_r*.json`` pairs; ``--bench-snapshot`` regenerates
-  ``SNAPSHOT_bench_r05.json`` with equal content.
+* ``--check-slo`` passes the checked-in ``SNAPSHOT_bench_r05.json`` and
+  ``--merge`` folds it as JAX does.
 * Armed, each group of seams (facade, distributed, wire, checkpoint, host
   tier, backends) gives JAX's series names, the port's engine labels
   mapped (``ENGINE_LABELS``).
@@ -23,7 +25,6 @@ JAX results are waited for before the port's side runs.
 """
 
 import dataclasses
-import glob
 import json
 import os
 
@@ -62,7 +63,14 @@ from sketches_tpu_torch.backends import uniform as TU
 from sketches_tpu_torch.backends import wirefmt as TW
 from sketches_tpu_torch.ddsketch import DDSketch as TDDSketch
 from sketches_tpu_torch.pb import wire as tw
-from torch_obs_common import arm_telemetry, map_labels, map_row, reset_layers
+from torch_obs_common import (
+    TELEMETRY_JAX_ONLY,
+    TELEMETRY_PORT_ONLY,
+    arm_telemetry,
+    jax_series,
+    map_row,
+    reset_layers,
+)
 from torch_robust_common import ALPHA, QS, mixed_batches
 from torch_worker_common import jax_compile_cache, one_torch_thread  # noqa: F401
 
@@ -95,17 +103,25 @@ def test_metric_inventory_matches_jax(i):
 
 
 def test_inventories_have_equal_sizes():
-    assert len(tt._DECLARED) == len(jt._DECLARED)
+    # JAX's inventory, then the port's own spans, each a histogram.
+    extra = tt._DECLARED[len(jt._DECLARED):]
+    assert tuple(m.name for m in extra) == tt.CALL_SPANS
+    assert {m.kind for m in extra} == {"histogram"}
     assert [dataclasses.asdict(s) for s in tt.SLOS] == [dataclasses.asdict(s) for s in jt.SLOS]
-    assert tt.BENCH_GATE == jt.BENCH_GATE and tt._BENCH_OBSERVE == jt._BENCH_OBSERVE
 
 
 @pytest.mark.parametrize("pair", [(jt, tt), (jtr, ttr), (jpf, tpf), (ja, ta)],
                          ids=["telemetry", "tracing", "profiling", "accuracy"])
 def test_public_names_and_constants_match_jax(pair):
     j, t = pair
-    assert t.__all__ == j.__all__
+    if t is tt:
+        assert [n for n in t.__all__ if n not in TELEMETRY_PORT_ONLY] == [
+            n for n in j.__all__ if n not in TELEMETRY_JAX_ONLY]
+    else:
+        assert t.__all__ == j.__all__
     for name in j.__all__:
+        if t is tt and name in TELEMETRY_JAX_ONLY:
+            continue
         assert callable(getattr(t, name)) == callable(getattr(j, name)), name
         # Constants only: the inventories compare above, and the peaks are
         # the card's, not the TPU's.
@@ -277,20 +293,29 @@ def test_disarmed_seams_read_no_clock_never_synchronize_and_record_nothing(
     monkeypatch, tmp_path
 ):
     """Every group of seams, disarmed, with the integrity layer and a fault
-    site armed (their seams test the telemetry and tracing flags too): a
-    clock read, a profiling or accuracy call, a recorder event or a
-    synchronize anywhere fails the test."""
+    site armed (their seams test the telemetry and tracing flags too), and
+    a facade chunked over streams, so every span seam of ``add`` runs: a
+    clock read, a profiling or accuracy call, a recorder event, a
+    synchronize or a profiler range anywhere fails the test."""
 
     def boom(*a, **k):  # pragma: no cover - firing is the failure
         raise AssertionError("the disarmed observability layer was entered")
 
     for mod, name in ((tt, "clock"), (tpf, "record"), (ta, "observe_ingest"),
-                      (ttr, "record_event"), (torch.cuda, "synchronize")):
+                      (ttr, "record_event"), (torch.cuda, "synchronize"),
+                      (torch.profiler, "record_function"),
+                      (torch.ops.profiler, "_record_function_enter_new")):
         monkeypatch.setattr(mod, name, boom)
     ti.arm("quarantine")
     tf.arm(tf.PALLAS_LOWERING, tier="overlap", times=1)
     for port, _ in GROUPS.values():
         port(tmp_path)
+    monkeypatch.setattr(tb, "_CHUNK_ELEMS", 1 << 16)  # 128-stream chunks at 512 bins
+    chunked = tb.BatchedDDSketch(4 * N, relative_accuracy=ALPHA, n_bins=512, device="cpu")
+    for v in mixed_batches(4 * N, 128, seed=5):
+        chunked.add(v)
+    for dis in LADDER:
+        chunked.get_quantile_values_resolved(QS, disabled_tiers=dis)
     assert ti.reports() == [] and tf.stats()[tf.PALLAS_LOWERING][1] == 1
     snap = tt.snapshot()
     assert snap["counters"] == {} and snap["gauges"] == {} and snap["histograms"] == {}
@@ -312,7 +337,7 @@ def test_armed_seams_give_jax_series_names(group, tmp_path, monkeypatch):
     port(tmp_path)
     js, ts = jt.snapshot(), tt.snapshot()
     for section in ("counters", "gauges", "histograms"):
-        assert sorted({map_labels(k) for k in ts[section]}) == sorted(js[section]), section
+        assert jax_series(ts[section]) == sorted(js[section]), section
     assert sorted(map_row(k) for k in ts["profiling"]["measured"]) == sorted(
         js["profiling"]["measured"])
     if group in ("facade", "wire"):
@@ -380,37 +405,19 @@ def test_cross_package_merge_is_equal(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The bench gate and the bench-derived snapshot
+# The checked-in snapshot through the CLI
 # ---------------------------------------------------------------------------
-
-BENCHES = sorted(glob.glob(os.path.join(ROOT, "BENCH_local_r*.json")))
-
-
-@pytest.mark.parametrize("old, new", [
-    (a, b) for a in BENCHES for b in BENCHES if a != b
-][::3], ids=lambda p: os.path.basename(p)[12:-5] if isinstance(p, str) else p)
-def test_check_bench_exit_codes_match_jax(old, new, capsys):
-    want = jt.main(["--check-bench", old, new])
-    jout = capsys.readouterr().out
-    assert tt.main(["--check-bench", old, new]) == want
-    assert capsys.readouterr().out == jout
-
-
-def test_check_bench_latest_and_tolerance_match_jax(capsys):
-    assert tt.main(["--check-bench-latest", *BENCHES]) == jt.main(["--check-bench-latest", *BENCHES])
-    args = ["--check-bench", BENCHES[0], BENCHES[1], "--tolerance", "0.01"]
-    assert tt.main(args) == jt.main(args)
 
 
 def test_bench_snapshot_regenerates_the_checked_in_fixture(tmp_path, capsys):
-    out = tmp_path / "snap.json"
-    assert tt.main(["--bench-snapshot", os.path.join(ROOT, "BENCH_local_r05.json"),
-                    str(out)]) == 0
-    with open(os.path.join(ROOT, "SNAPSHOT_bench_r05.json")) as f:
+    """The checked-in SLO fixture (made by the JAX package's
+    ``--bench-snapshot``) passes the port's ``--check-slo``, and the port's
+    ``--merge`` folds it as the JAX package does."""
+    path = os.path.join(ROOT, "SNAPSHOT_bench_r05.json")
+    with open(path) as f:
         checked_in = json.load(f)
-    assert json.loads(out.read_text()) == checked_in
-    assert tt.main(["--check-slo", str(out)]) == 0
+    assert tt.main(["--check-slo", path]) == jt.main(["--check-slo", path]) == 0
     merged = tmp_path / "merged.json"
-    assert tt.main(["--merge", str(out), str(out), "--out", str(merged)]) == 0
+    assert tt.main(["--merge", path, path, "--out", str(merged)]) == 0
     with open(merged) as f:
         assert json.load(f) == jt.merge_snapshots(checked_in, checked_in)

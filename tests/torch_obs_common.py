@@ -18,6 +18,15 @@ from sketches_tpu_torch import telemetry as tt
 from sketches_tpu_torch import tracing as ttr
 from torch_robust_common import reset_both
 
+#: Telemetry names the JAX package exports and the port does not: the bench
+#: regression gate over the JAX package's ``bench.py`` captures (the port's
+#: benchmark is ``sketchbench/``).
+TELEMETRY_JAX_ONLY = frozenset(
+    ("check_bench", "capture_class", "capture_mismatch", "find_comparable_pair",
+     "snapshot_from_bench"))
+#: Telemetry names only the port exports: the hot path's span seam.
+TELEMETRY_PORT_ONLY = frozenset(("call_spans", "CALL_SPANS", "PROFILER_PREFIX"))
+
 #: The port's engine labels stand for the JAX package's: ingest
 #: ``kernel``/``plain`` for ``pallas``/``xla``, the distributed ingest
 #: ``shards`` for ``shard_map``.
@@ -51,6 +60,15 @@ def map_labels(key: str) -> str:
         for label in ("engine", "tier"):
             key = key.replace(f'{label}="{port}"', f'{label}="{jax_name}"')
     return key
+
+
+def jax_series(keys) -> list:
+    """Rendered series keys with the port's engine labels mapped, less the
+    port's own spans (``telemetry.CALL_SPANS``), which the JAX package
+    does not record."""
+    from sketches_tpu_torch.telemetry import CALL_SPANS
+
+    return sorted({map_labels(k) for k in keys if k.split("{", 1)[0] not in CALL_SPANS})
 
 
 def map_row(key: str) -> str:
