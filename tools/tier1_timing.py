@@ -5,7 +5,9 @@ Tier-1 is ``pytest tests/ -m 'not slow'`` under ``pytest-xdist`` with six
 workers and ``--dist loadfile`` (each file goes whole to one worker) and a
 1470-s limit.  ``loadfile`` hands out files by their count of tests, most
 first, so the files of one to three tests go last: the run's end is the
-latest of its workers' ends, and a long file with few tests sets it.
+latest of its workers' ends, and a long file with few tests sets it.  The
+root ``conftest.py`` therefore hands its ``LONG_FILES`` out first, each
+alone on its worker.
 
     python3 tools/tier1_timing.py run OUT [--busy N] [-- PYTEST_ARGS]
     python3 tools/tier1_timing.py report OUT [OUT ...]
@@ -16,14 +18,13 @@ with this module loaded as a plugin, which writes each test's start time
 and worker to ``OUT/events.log``; the output goes to ``OUT/log.txt``, each
 line stamped with the seconds since the start, and the junit report to
 ``OUT/junit.xml``.  ``--busy N`` adds N CPU-bound processes beside the run
-(a loaded machine); PYTEST_ARGS go at the end of the command (say,
-``--ignore=tests/test_property_stateful.py`` for a loaded run that must
-end inside the limit).  ``report`` prints the result, each file's seconds, the
-worker and start of each, each worker's last file and end, and the seconds
-from the last progress line to the exit.  ``simulate`` replays the
-``loadfile`` scheduler on that run's test times (``--port-scale`` scales
-the port's tests, ``tests/test_torch_*.py``) and prints the end it
-predicts.
+(a loaded machine; a plain ``--busy 3`` run ends inside the limit);
+PYTEST_ARGS go at the end of the command.  ``report`` prints the result,
+each file's seconds, the worker and start of each, each worker's last file
+and end, and the seconds from the last progress line to the exit.
+``simulate`` replays that scheduler on that run's test times
+(``--port-scale`` scales the port's tests, ``tests/test_torch_*.py``) and
+prints the end it predicts.
 """
 
 import argparse
@@ -193,24 +194,36 @@ def collection():
 
 
 def simulate(order, times):
-    """The end ``--dist loadfile`` reaches with these test times: files
-    queued by their count of tests, most first; a worker takes the next
-    file whenever two or fewer of its tests are left to finish."""
-    queue = collections.defaultdict(list)
+    """The end tier-1's scheduler reaches with these test times: files
+    queued by their count of tests, most first, behind the root
+    ``conftest.py``'s ``LONG_FILES``; a worker takes the next file whenever
+    two or fewer of its tests are left to finish, and none while a long
+    file's are."""
+    sys.path.insert(0, ROOT)
+    from conftest import LONG_FILES
+
+    files = collections.defaultdict(list)
     for nodeid in order:
-        queue[_file(nodeid)].append(nodeid)
-    queue = collections.deque(sorted(queue.values(), key=len, reverse=True))
+        files[_file(nodeid)].append(nodeid)
+    rank = {f: i for i, f in enumerate(LONG_FILES)}
+    queue = collections.deque(sorted(files.values(), key=lambda tests: (
+        rank.get(_file(tests[0]), len(rank)), -len(tests))))
     pending = [collections.deque() for _ in range(WORKERS)]
+
+    def wants(i):
+        return (queue and len(pending[i]) <= 2
+                and not any(_file(n) in rank for n in pending[i]))
+
     for i in range(WORKERS):
         if queue:
             pending[i].extend(queue.popleft())
     for i in range(WORKERS):
-        if queue and len(pending[i]) <= 2:
+        if wants(i):
             pending[i].extend(queue.popleft())
     ends, clock = [0.0] * WORKERS, [(0.0, i) for i in range(WORKERS)]
     while clock:
         now, i = heapq.heappop(clock)
-        if queue and len(pending[i]) <= 2:
+        if wants(i):
             pending[i].extend(queue.popleft())
         if not pending[i]:
             ends[i] = now
