@@ -1,10 +1,12 @@
 """One run of one cell: set-up, the measured window, the check, the result.
 
 The cell's entry in ``BENCHMARK.json`` names its configuration (the file
-under ``configs/``) and its traffic (``traffic/<name>.json``, whose
-``loop``, ``values`` and ``flush`` name modules of ``loops/`` and
+under ``configs/``, whose ``system`` names a module of ``systems/``:
+``batched`` when it names none) and its traffic (``traffic/<name>.json``,
+whose ``loop``, ``values`` and ``flush`` name modules of ``loops/`` and
 ``gen/``); each per-layer metric is read by ``metrics/<name>.py``.  So a
-new cell needs data files and a manifest entry, not code.
+new cell needs new files and a manifest entry, and no edit of a file the
+harness has.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ from typing import Optional
 
 import torch
 
-from sketchbench import check, gen, loops, system
+from sketchbench import gen, loops, systems
 from sketchbench.loops import clock
-from sketchbench.yardstick import kernel_bytes, peaks, trace
+from sketchbench.yardstick import peaks, trace
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -98,6 +100,12 @@ def main(argv=None, started: Optional[float] = None, system_factory=None) -> int
     started = clock() if started is None else started
     args = parse(argv)
     manifest, cell, config, traffic = load_cell(args.manifest, args.workload)
+    try:
+        mod = systems.system(config.get("system", "batched"))
+    except ModuleNotFoundError as e:
+        print(f"sketchbench: {cell['config']} names system {config.get('system')!r}:"
+              f" no module {e.name}", file=sys.stderr)
+        return 2
     if args.cpu_rehearsal:
         device = torch.device("cpu")
     else:
@@ -115,22 +123,14 @@ def main(argv=None, started: Optional[float] = None, system_factory=None) -> int
 
     # -- set-up: inputs, the system, the first add and two more steps --
     inputs = gen.build(traffic, args.seed, n, device)
-    sut = (system_factory or system.Program)(config, n, device)
+    sut = (system_factory or mod.Program)(config, n, device)
     loop = loops.loop(traffic["loop"])
     start = loop.warm(sut, inputs, traffic)
     setup_s = clock() - started
     rows = gen.sample_rows(inputs, int(ck["rows"]), int(ck.get("heaviest", 0)))
 
-    def facts():
-        st = sut.state()
-        f = {"k1_bytes_per_add": kernel_bytes.k1_bytes(
-            n, inputs.width, n_bins, weighted=inputs.weights is not None)}
-        if qs and st is not None:
-            f["k3_bytes"] = kernel_bytes.k3_bytes(st, n_bins, len(qs))
-            f["k5_bytes"] = kernel_bytes.k5_bytes(st, qs)
-        return f
-
-    tracer = trace.Tracer(int(traffic["trace_steps"]) if args.trace else 0, device, facts)
+    tracer = trace.Tracer(int(traffic["trace_steps"]) if args.trace else 0, device,
+                          lambda: mod.facts(sut, inputs, config, qs))
     before = sut.counters()
 
     # -- the measured window --
@@ -150,8 +150,8 @@ def main(argv=None, started: Optional[float] = None, system_factory=None) -> int
 
     # -- the check, against the plain reference --
     t_check = clock()
-    verdict = check.judge(config, inputs, rows, prog, res["adds"], ck["limits"], qs,
-                          res["kept"])
+    verdict = mod.judge(config, inputs, rows, prog, res["adds"], ck["limits"], qs,
+                        res["kept"])
     check_s = clock() - t_check
 
     # An end-to-end metric ``<base>.<kind>`` reports the loop's ``<base>``

@@ -1,8 +1,8 @@
-"""The system under test: ``sketches_tpu_torch.BatchedDDSketch`` on its
+"""The batched system: ``sketches_tpu_torch.BatchedDDSketch`` on its
 default engine (``auto``: the kernel path on the card), built from a
-configuration file.  This is the benchmark's one door into the program:
-it takes the facade, its state leaves and its launch counters, and
-nothing else.
+configuration file.  It takes the facade, its state leaves and its launch
+counters, and nothing else; ``check.judge`` holds it to
+``reference/ddsketch_ref.py``.
 """
 
 from __future__ import annotations
@@ -10,6 +10,9 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from sketchbench import check
+from sketchbench.yardstick import kernel_bytes
 
 #: The state leaves the check reads (the facade's ``SketchState`` fields).
 LEAVES = (
@@ -62,3 +65,19 @@ class Program:
 
     def close(self) -> None:
         self.facade = None
+
+
+#: The state and answers against ``reference/ddsketch_ref.py``.
+judge = check.judge
+
+
+def facts(sut, inputs, config: dict, qs) -> dict:
+    """K1's bytes an ``add``, and K3's and K5's a query of the final state."""
+    n_bins = int(config["bin_limit"])
+    st = sut.state()
+    f = {"k1_bytes_per_add": kernel_bytes.k1_bytes(
+        inputs.n, inputs.width, n_bins, weighted=inputs.weights is not None)}
+    if qs and st is not None:
+        f["k3_bytes"] = kernel_bytes.k3_bytes(st, n_bins, len(qs))
+        f["k5_bytes"] = kernel_bytes.k5_bytes(st, qs)
+    return f

@@ -74,7 +74,7 @@ def test_sources_import_no_jax_and_the_reference_no_port():
         assert not (imported(path) & FORBIDDEN), path
     for path in (BENCH / "reference").glob("*.py"):
         assert "sketches_tpu_torch" not in imported(path), path
-    # Outside the tests, only the system adapter imports the program.
-    users = {p.relative_to(BENCH).as_posix() for p in BENCH.rglob("*.py")
+    # Outside the tests, only the system modules import the program.
+    users = {p.relative_to(BENCH).parts[0] for p in BENCH.rglob("*.py")
              if p.parent.name != "tests" and "sketches_tpu_torch" in imported(p)}
-    assert users == {"system.py"}
+    assert users == {"systems"}

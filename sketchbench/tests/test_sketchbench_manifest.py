@@ -45,30 +45,109 @@ def test_names_units_and_lines():
         assert LINE.match(e["why"])
 
 
+def check_config(entry: dict, body: dict) -> None:
+    """A configuration entry and its file against the contract: sizes, the
+    system it names, and every key it cut stated with its published value
+    and the deployment it stands for (model-configs guide, section 4)."""
+    assert set(entry) == {"name", "source", "file", "reduced", "why"}
+    assert entry["source"].startswith("https://") and LINE.match(entry["source"])
+    assert entry["file"].startswith("sketchbench/configs/")
+    for key in ("n_streams", "bin_limit"):
+        assert type(body[key]) is int and body[key] > 0, key
+    system = body.get("system", "batched")
+    assert NAME.match(system) and (REPO / "sketchbench" / "systems" / f"{system}.py").is_file()
+    reduced = entry["reduced"]
+    assert isinstance(reduced, list) and len(reduced) <= 16
+    for key in reduced:
+        assert NAME.match(key) and key in body, key
+    if reduced:
+        published = body.get("published")
+        assert isinstance(published, dict) and set(reduced) <= set(published)
+        assert isinstance(body.get("deployment"), str) and LINE.match(body["deployment"])
+
+
+def check_workloads(workloads: list, configs: set) -> None:
+    """Cells against the contract: known configurations, one cell a pair of
+    configuration and traffic, 1 or 4 chips, and at most a quarter of the
+    cells (one always) on 4."""
+    pairs = set()
+    for w in workloads:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["config"] in configs and w["chips"] in (1, 4)
+        assert (w["config"], w["traffic"]) not in pairs
+        pairs.add((w["config"], w["traffic"]))
+    assert sum(w["chips"] == 4 for w in workloads) <= max(1, len(workloads) // 4)
+
+
 def test_configs():
     for c in MANIFEST["configs"]:
-        assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert c["source"].startswith("https://") and LINE.match(c["source"])
-        assert c["file"].startswith("sketchbench/configs/") and (REPO / c["file"]).is_file()
-        assert c["reduced"] == []
-        body = json.loads((REPO / c["file"]).read_text())
-        assert body["n_streams"] == 1 << 20 and body["bin_limit"] == 2048
+        assert (REPO / c["file"]).is_file()
+        check_config(c, json.loads((REPO / c["file"]).read_text()))
         assert any(w["config"] == c["name"] for w in MANIFEST["workloads"])
     assert len({c["file"] for c in MANIFEST["configs"]}) == len(MANIFEST["configs"])
 
 
 def test_workloads():
-    configs = {c["name"] for c in MANIFEST["configs"]}
-    pairs = set()
+    check_workloads(MANIFEST["workloads"], {c["name"] for c in MANIFEST["configs"]})
     for w in MANIFEST["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["config"] in configs and w["chips"] == 1
-        assert (w["config"], w["traffic"]) not in pairs
-        pairs.add((w["config"], w["traffic"]))
         t = json.loads((REPO / "sketchbench" / "traffic" / f"{w['traffic']}.json").read_text())
         assert (REPO / "sketchbench" / "loops" / f"{t['loop']}.py").is_file()
         for part in ("values", "flush"):
             assert (REPO / "sketchbench" / "gen" / f"{t[part]['kind']}.py").is_file()
+
+
+REDUCED_ENTRY = {"name": "tiny_cut", "source": "https://example.org/deployment",
+                 "file": "sketchbench/configs/tiny_cut.json", "reduced": ["n_streams"],
+                 "why": "a synthetic cut configuration"}
+REDUCED_BODY = dict(tiny.CONFIG, n_streams=65_536, system="batched",
+                    published={"n_streams": 1 << 22},
+                    deployment="one card of four that share the published streams")
+
+
+def test_config_contract_accepts_a_reduced_deployment():
+    check_config(REDUCED_ENTRY, REDUCED_BODY)
+    check_config(dict(REDUCED_ENTRY, reduced=[]), tiny.CONFIG)
+
+
+@pytest.mark.parametrize("entry, body", [
+    (REDUCED_ENTRY, {k: v for k, v in REDUCED_BODY.items() if k != "published"}),
+    (REDUCED_ENTRY, {k: v for k, v in REDUCED_BODY.items() if k != "deployment"}),
+    (REDUCED_ENTRY, dict(REDUCED_BODY, published={"bin_limit": 2048})),
+    (dict(REDUCED_ENTRY, reduced=["n_streams", "window_s"]),
+     dict(REDUCED_BODY, published={"n_streams": 1 << 22, "window_s": 300})),
+    (dict(REDUCED_ENTRY, reduced="n_streams"), REDUCED_BODY),
+    (REDUCED_ENTRY, dict(REDUCED_BODY, system="nosuch")),
+    (REDUCED_ENTRY, dict(REDUCED_BODY, n_streams=0)),
+    (REDUCED_ENTRY, dict(REDUCED_BODY, bin_limit=512.0)),
+], ids=["no-published", "no-deployment", "published-lacks-key", "key-not-in-file",
+        "reduced-not-a-list", "unknown-system", "no-streams", "float-bins"])
+def test_config_contract_rejects(entry, body):
+    with pytest.raises(AssertionError):
+        check_config(entry, body)
+
+
+def cells(n_cells, n_four):
+    return [{"name": f"c{i}", "config": "tiny_cubic", "traffic": f"t{i}",
+             "chips": 4 if i < n_four else 1, "why": "a synthetic cell"}
+            for i in range(n_cells)]
+
+
+@pytest.mark.parametrize("n_cells, n_four, ok", [
+    (1, 1, True), (3, 1, True), (3, 2, False), (8, 2, True), (8, 3, False), (24, 6, True),
+    (24, 7, False),
+])
+def test_four_chip_cells_are_capped(n_cells, n_four, ok):
+    workloads = cells(n_cells, n_four)
+    if ok:
+        check_workloads(workloads, {"tiny_cubic"})
+    else:
+        with pytest.raises(AssertionError):
+            check_workloads(workloads, {"tiny_cubic"})
+
+
+def test_chips_are_one_or_four():
+    with pytest.raises(AssertionError):
+        check_workloads([dict(cells(1, 0)[0], chips=2)], {"tiny_cubic"})
 
 
 def reports(metric, cell):

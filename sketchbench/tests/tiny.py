@@ -27,12 +27,14 @@ TRAFFIC = {
 }
 
 
-def write_cell(root: Path) -> Path:
-    """The tiny cell's files under ``root``; returns its manifest."""
+def write_cell(root: Path, **config) -> Path:
+    """The tiny cell's files under ``root``, its configuration updated by
+    ``config``; returns its manifest."""
     real = json.loads((REPO / "BENCHMARK.json").read_text())
     (root / "sketchbench" / "configs").mkdir(parents=True)
     (root / "sketchbench" / "traffic").mkdir(parents=True)
-    (root / "sketchbench" / "configs" / "tiny_cubic.json").write_text(json.dumps(CONFIG))
+    body = json.dumps(dict(CONFIG, **config))
+    (root / "sketchbench" / "configs" / "tiny_cubic.json").write_text(body)
     (root / "sketchbench" / "traffic" / "tiny_mix.json").write_text(json.dumps(TRAFFIC))
     cell = {"name": "tiny.dash", "config": "tiny_cubic", "traffic": "tiny_mix", "chips": 1,
             "why": "a tiny test cell"}
